@@ -1,0 +1,59 @@
+"""Architecture registry: ``get_config("qwen2.5-3b")``.
+
+Only the qwen2.5-3b entry is ported; the reference's other archs raise.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import (
+    ApproxConfig,
+    Backend,
+    Family,
+    ModelConfig,
+    TrainMode,
+)
+
+_ARCH_MODULES: Dict[str, str] = {
+    "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+}
+# archs the JAX reference registers that the port does not serve yet
+_NOT_PORTED = (
+    "mamba2-130m", "yi-6b", "mistral-large-123b", "granite-20b",
+    "zamba2-1.2b", "paligemma-3b", "grok-1-314b", "dbrx-132b",
+    "musicgen-large", "paper-tinyconv", "paper-resnet-tiny",
+)
+
+
+def list_archs() -> List[str]:
+    return list(_ARCH_MODULES)
+
+
+def _module(name: str):
+    if name in _NOT_PORTED:
+        raise NotImplementedError(f"arch {name!r} is not yet ported to repro_torch")
+    if name not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(_ARCH_MODULES)}")
+    return importlib.import_module(_ARCH_MODULES[name])
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).get_config(name)
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    """A reduced config of the same family, for CPU tests."""
+    return _module(name).get_smoke_config(name)
+
+
+__all__ = [
+    "ApproxConfig",
+    "Backend",
+    "Family",
+    "ModelConfig",
+    "TrainMode",
+    "get_config",
+    "get_smoke_config",
+    "list_archs",
+]

@@ -1,0 +1,21 @@
+"""Dynamic operand scales (port of ``tensor_scale`` and ``row_scale`` from
+``repro.core.proxy``; the proxy activations belong to training and are
+not ported yet)."""
+from __future__ import annotations
+
+import torch
+
+
+def tensor_scale(x, eps: float = 1e-6):
+    """Per-tensor dynamic scale: max |x|, never below eps."""
+    m = torch.amax(torch.abs(x))
+    return torch.maximum(m, torch.tensor(eps, dtype=x.dtype, device=x.device))
+
+
+def row_scale(x, eps: float = 1e-6):
+    """Per-row (per-token) dynamic scale: max |x| over the contraction
+    axis, keepdims.  Per-token quantisation keeps the multiplier-error
+    emulations batch-invariant: a request's quantisation grid never
+    depends on what shares its slot batch."""
+    m = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    return torch.maximum(m, torch.tensor(eps, dtype=x.dtype, device=x.device))

@@ -1,0 +1,144 @@
+"""Build, load and launch the CUDA kernels in ``csrc/``.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, loaded with ``ctypes``.  Builds
+happen at first use (or all at once, in parallel, through
+:func:`build_all`) into ``build/repro_torch_kernels/`` at the root of the
+checkout, named by a hash of the sources and flags so an edited source is
+never served from a stale library.  Importing this module needs neither
+``nvcc`` nor CUDA.
+
+:func:`launch` is the one place a kernel is started: it calls the C entry
+point, raises if it returned a CUDA error, and adds one to that kernel's
+launch count in :data:`LAUNCHES`.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# library -> {C entry point: argtypes}
+SIGNATURES = {
+    "vpu_matmul": {
+        # mul, in_bf16, x, w, acc, out, M, N, K, drop_bits, stream
+        "vpu_matmul": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # mul, in_bf16, out_bf16, x, w, pre, gain, add, coeffs, P,
+        # mean_scale, eps, acc, out, M, N, K, drop_bits, stream
+        "vpu_matmul_fused": (
+            _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F, _F, _P, _P,
+            _I, _I, _I, _I, _P,
+        ),
+    },
+    "flash_decode": {
+        # in_bf16, q, ck, cv, pos, out, B, S, KV, G, dh, scale, stream
+        "flash_decode": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    },
+}
+
+# kernel name -> launches since the last reset_launches()
+LAUNCHES: Dict[str, int] = {
+    "elementwise_matmul[approx_mult]": 0,
+    "elementwise_matmul[log_mult]": 0,
+    "elementwise_matmul_fused[approx_mult]": 0,
+    "elementwise_matmul_fused[log_mult]": 0,
+    "flash_decode": 0,
+}
+# library -> nvcc's output (register and shared-memory use per kernel)
+BUILD_LOG: Dict[str, str] = {}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    found = str(cand) if cand.exists() else shutil.which("nvcc")
+    if not found:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and PATH): the CUDA "
+            "kernels build on a machine with the CUDA toolkit"
+        )
+    return found
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):  # the .cu and the shared headers
+        if src.suffix == ".cuh" or src.stem == name:
+            h.update(src.name.encode())
+            h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_all(names=tuple(SIGNATURES)) -> float:
+    """Compile every missing library, one ``nvcc`` per source, all started
+    together.  Returns the wall seconds spent; raises on a failed build."""
+    t0 = time.perf_counter()
+    todo = {n: _target(n) for n in names if not _target(n).exists()}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        for name, target in todo.items():
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            ))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            BUILD_LOG[name] = out
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu (exit {proc.returncode}):\n{out}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, todo[name])  # atomic: readers never see half a file
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built on first use."""
+    if name not in _LIBS:
+        build_all((name,))
+        so = ctypes.CDLL(str(_target(name)))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(so, fn).argtypes = argtypes
+            getattr(so, fn).restype = ctypes.c_int
+        err = getattr(so, f"{name}_error_string")
+        err.argtypes = (ctypes.c_int,)
+        err.restype = ctypes.c_char_p
+        _LIBS[name] = so
+    return _LIBS[name]
+
+
+def launch(kernel: str, library: str, entry: str, *args) -> None:
+    """Call ``entry`` of ``library``; raise on a CUDA error, else count one
+    launch of ``kernel``."""
+    so = lib(library)
+    rc = getattr(so, entry)(*args)
+    if rc != 0:
+        msg = getattr(so, f"{library}_error_string")(rc).decode()
+        raise RuntimeError(f"{kernel}: CUDA error {rc} at launch: {msg}")
+    LAUNCHES[kernel] += 1

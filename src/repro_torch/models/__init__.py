@@ -1,0 +1,4 @@
+"""Dense decoder LM: modules, full-sequence forward, decode and slot ops."""
+from repro_torch.models.model import Model, build_model
+
+__all__ = ["Model", "build_model"]

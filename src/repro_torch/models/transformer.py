@@ -1,0 +1,147 @@
+"""Decoder-LM assembly, DENSE family (port of ``repro.models.transformer``:
+``padded_vocab``, ``init_params``, ``_attn_block_apply``, ``_embed``,
+``_lm_head`` and ``apply_model`` with ``return_cache``).
+
+The parameters are an ``nn.Module`` tree (:class:`Transformer`); a Python
+loop over ``layers`` takes the place of the reference's ``lax.scan``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Dict, List, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ApproxConfig, Family, ModelConfig
+from repro_torch.core.approx_linear import ApproxCtx, dense
+from repro_torch.models import layers as L
+
+
+class Block(nn.Module):
+    """One attention + SwiGLU block."""
+
+    def __init__(self, ln1, ln2, attn: L.Attention, mlp: L.MLP):
+        super().__init__()
+        self.ln1 = L.frozen(ln1)
+        self.ln2 = L.frozen(ln2)
+        self.attn = attn
+        self.mlp = mlp
+
+
+class Transformer(nn.Module):
+    """Parameters of a DENSE decoder LM, in the reference's layouts:
+    ``embed`` [V, D], projections [in, out], ``lm_head`` [D, V] (absent
+    for tied embeddings)."""
+
+    def __init__(self, embed, final_norm, layers: List[Block], lm_head=None):
+        super().__init__()
+        self.embed = L.frozen(embed)
+        self.final_norm = L.frozen(final_norm)
+        self.layers = nn.ModuleList(layers)
+        self.lm_head = None if lm_head is None else L.frozen(lm_head)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def check_dense(cfg: ModelConfig) -> None:
+    if cfg.family != Family.DENSE:
+        raise NotImplementedError(
+            f"family {cfg.family.value!r} is not yet ported to repro_torch (DENSE only)"
+        )
+
+
+def padded_vocab(cfg: ModelConfig) -> int:
+    """Vocab rounded up to a multiple of 256 when REPRO_PAD_VOCAB=1, as in
+    the reference; logits are sliced back to the true vocab."""
+    if os.environ.get("REPRO_PAD_VOCAB") == "1":
+        return -(-cfg.vocab_size // 256) * 256
+    return cfg.vocab_size
+
+
+def init_params(cfg: ModelConfig, seed: int, device) -> Transformer:
+    """Random weights from ``seed`` (normal, scaled by fan-in; norms one,
+    biases zero), made on ``device`` in ``cfg.param_dtype``."""
+    check_dense(cfg)
+    dtype = getattr(torch, cfg.param_dtype)
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    V, D = padded_vocab(cfg), cfg.d_model
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=gen, dtype=dtype, device=device) * scale
+
+    embed = normal((V, D), D ** -0.5)
+    lm_head = None if cfg.tie_embeddings else normal((D, V), D ** -0.5)
+    ones = lambda: torch.ones((D,), dtype=dtype, device=device)
+    layers = [
+        Block(ones(), ones(), L.init_attention(gen, cfg, dtype, device),
+              L.init_mlp(gen, cfg, dtype, device))
+        for _ in range(cfg.n_layers)
+    ]
+    return Transformer(embed, ones(), layers, lm_head)
+
+
+@dataclasses.dataclass
+class ApplyOutput:
+    logits: torch.Tensor
+    cache: Optional[Dict[str, Any]] = None  # prefill KV cache
+
+
+def _attn_block_apply(x, p: Block, cfg, ctx, positions, chunk_q):
+    h, kv = L.attention(
+        L.rmsnorm(x, p.ln1, cfg.norm_eps), p.attn, cfg, ctx, positions, chunk_q=chunk_q
+    )
+    x = x + h
+    x = x + L.mlp(L.rmsnorm(x, p.ln2, cfg.norm_eps), p.mlp, ctx)
+    return x, kv
+
+
+def _embed(params: Transformer, cfg: ModelConfig, batch, dtype):
+    return params.embed[batch["tokens"]].to(dtype)
+
+
+def _lm_head(x, params: Transformer, cfg: ModelConfig, ctx):
+    w = params.embed.T if cfg.tie_embeddings else params.lm_head
+    logits = dense(x, w.to(x.dtype), site="lm_head", ctx=ctx)
+    if logits.shape[-1] != cfg.vocab_size:  # drop vocab-padding columns
+        logits = logits[..., : cfg.vocab_size]
+    return logits
+
+
+def apply_model(
+    params: Transformer,
+    batch,
+    cfg: ModelConfig,
+    *,
+    approx: ApproxConfig = ApproxConfig(),
+    chunk_q: int = 1024,
+    return_cache: bool = False,
+) -> ApplyOutput:
+    """Full-sequence forward.  batch: {'tokens': [B, T] int}.
+
+    Right-padded rows need no masking in a DENSE model: decode never
+    looks past a slot's position.  With ``return_cache`` the output
+    carries the KV cache laid out as
+    :func:`repro_torch.models.decode.init_cache` with ``max_seq = T``.
+    """
+    check_dense(cfg)
+    dtype = getattr(torch, cfg.compute_dtype)
+    x = _embed(params, cfg, batch, dtype)
+    B, T, _ = x.shape
+    positions = torch.arange(T, dtype=torch.int32, device=x.device).expand(B, T)
+    ctx = ApproxCtx(cfg=approx)
+    ks, vs = [], []
+    for p in params.layers:
+        x, (k, v) = _attn_block_apply(x, p, cfg, ctx, positions, chunk_q)
+        if return_cache:
+            ks.append(k)
+            vs.append(v)
+    x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
+    logits = _lm_head(x, params, cfg, ctx)
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs)} if return_cache else None
+    return ApplyOutput(logits=logits, cache=cache)
