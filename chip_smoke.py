@@ -10,23 +10,34 @@ checkout of the repository.  Phases, each synchronised before the next:
    kernels/csrc`` (one nvcc per source, in parallel).
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it (qwen2.5-3b full width): K1 and K2 for
-   both multipliers must be bitwise equal (K2 also with random epilogue
-   operands); K3 within 1e-4.  Each is timed with CUDA events beside its
-   plain version, its roofline bound and, for K3, a masked
-   ``scaled_dot_product_attention`` call (timed here only; the port never
-   calls it).
+   both multipliers, K4 and K5 (SC), K6 and K7 (analog) must be bitwise
+   equal (the fused ones also with random epilogue operands); K3 within
+   1e-4.  The SC and analog operands come from the emulators' own
+   value-domain code on random bf16 activations and weights.  Each kernel
+   is timed with CUDA events beside its plain version, its roofline bound
+   and, for K3, a masked ``scaled_dot_product_attention`` call (timed here
+   only; the port never calls it).
 3. Serve a seeded queue through the engine on the qwen2.5-3b smoke config
-   on the card and on the CPU: greedy tokens must match and logits agree
-   within 1e-3.
-4. Serve 8 requests at qwen2.5-3b full width (bf16, random weights from
-   the seed; backends exact, log_mult, approx_mult; fused decode) and
-   check every kernel of the path was launched.
+   on the card and on the CPU, backends exact, log_mult, approx_mult, sc
+   and analog, with the same SC draws on both (made on the CPU).  Exact
+   and multiplier-error requests: greedy tokens equal, logits within
+   1e-3.  SC and analog: every projection the card ran, recomputed on
+   the CPU by the plain version from the same operands and draws, is
+   bitwise equal (end to end, a stream bit or ADC level at a decision
+   boundary may flip when an upstream op differs in its last bit, so
+   their tokens are reported, not required equal).
+4. Serve 10 requests at qwen2.5-3b full width (bf16, random weights from
+   the seed; backends exact, log_mult, approx_mult, sc, analog cycled;
+   fused decode) and check every kernel of the path was launched; then
+   serve the same queue again on the warm engine for per-lane
+   steady-state rates.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -39,9 +50,25 @@ import torch.nn.functional as F
 
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate
 CUDA_CORE_OPS_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+BF16_TENSOR_OPS_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 PREFILL_M = 64           # largest prompt bucket of the engine phase
 DECODE_M = 4             # slots of the engine phase
 MAX_SEQ = 96             # engine phase: prompts <= 64 + <= 32 new tokens
+
+# kernel (launch-count name) -> (CUDA source, the TPU kernel's pl.pallas_call)
+KERNEL_SOURCES = {
+    "elementwise_matmul[approx_mult]": ("vpu_matmul.cu", "vpu_matmul.py:79"),
+    "elementwise_matmul[log_mult]": ("vpu_matmul.cu", "vpu_matmul.py:79"),
+    "elementwise_matmul_fused[approx_mult]": ("vpu_matmul.cu", "vpu_matmul.py:228"),
+    "elementwise_matmul_fused[log_mult]": ("vpu_matmul.cu", "vpu_matmul.py:228"),
+    "flash_decode": ("flash_decode.cu", "flash_decode.py:98"),
+    "sc_matmul_packed": ("sc_matmul.cu", "sc_matmul.py:89"),
+    "sc_matmul_packed_fused": ("sc_matmul.cu", "sc_matmul.py:235"),
+    "analog_matmul": ("analog_matmul.cu", "analog_matmul.py:87"),
+    "analog_matmul_fused": ("analog_matmul.cu", "analog_matmul.py:233"),
+}
+# the kernels the serving path launches (the packed-words entry of K4 is a check)
+PATH_KERNELS = tuple(KERNEL_SOURCES)
 
 
 def smi() -> str:
@@ -65,8 +92,8 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / CUDA_CORE_OPS_S * 1e3
+def bound(nbytes: float, ops: float, ops_s: float = CUDA_CORE_OPS_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / ops_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -171,35 +198,214 @@ def phase_kernels(dev, cfg):
     return summary
 
 
+def _site_shapes(cfg):
+    """(K, N) of every dense() site: q/o, k/v, gate/up, down, lm_head."""
+    D, F_, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    H, KVd = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
+    return [(D, H), (D, KVd), (D, F_), (F_, D), (D, V)]
+
+
+def _sc_analog_bound(kname, M, K, N, bits):
+    """Bytes each input read once and each output written once; the
+    operations each kernel's function needs (see PERF.md)."""
+    P, W = 2 * K, bits // 32
+    planes = 2 * K * N * 2                      # the two bf16 weight halves
+    if kname.startswith("sc"):
+        fused = kname.endswith("fused")
+        nbytes = 2 * M * P + planes + 4 * bits + 4 * P * bits + (2 if fused else 4) * M * N
+        pol = 2 if fused else 1
+        # AND + OR per (row, port, column, word); one op per stream word built
+        ops = pol * (2 * M * P * N * W + P * N * W) + M * P * W
+        return bound(nbytes, ops)
+    fused = kname.endswith("fused")
+    nbytes = 2 * M * P + planes + (2 if fused else 4) * M * N
+    # a multiply-add (2 ops) per (row, port, column) per polarity, on bf16 operands
+    return bound(nbytes, (2 if fused else 1) * 2.0 * M * P * N, BF16_TENSOR_OPS_S)
+
+
+def phase_sc_analog(dev, cfg):
+    """K4-K7 against their plain versions at every serving shape, on the
+    operands the emulators make (value-domain code of core/backends.py on
+    random bf16 activations and fan-in-scaled weights)."""
+    from repro_torch.configs.base import AnalogParams, SCParams
+    from repro_torch.core.backends import _array_planes, _stream_planes
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.analog_matmul import (
+        analog_matmul_cuda,
+        analog_matmul_fused_cuda,
+        analog_matmul_fused_ref,
+    )
+    from repro_torch.kernels.sc_matmul import (
+        sc_matmul_cuda,
+        sc_matmul_fused_cuda,
+        sc_matmul_fused_ref,
+        sc_matmul_words_cuda,
+    )
+
+    sc_p, an_p = SCParams(), AnalogParams()
+    adc = (an_p.array_size, an_p.adc_bits, an_p.adc_range)
+    rep = (cfg.d_model, cfg.d_ff)
+    g = torch.Generator(device=dev).manual_seed(1)
+    bf = torch.bfloat16
+    summary = {}
+    for K, N in _site_shapes(cfg):
+        w = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).to(bf)
+        for kname, M in (("sc_matmul_packed", PREFILL_M), ("sc_matmul_packed_fused", DECODE_M),
+                         ("analog_matmul", PREFILL_M), ("analog_matmul_fused", DECODE_M)):
+            x = torch.randn((M, K), generator=g, device=dev).to(bf)
+            fused = kname.endswith("fused")
+            if kname.startswith("sc"):
+                xp, xn, wp, wn, pre = _stream_planes(x, w, sc_p)
+                ux, uw = ops.sc_draws((1, K, N, M), 2 * K, sc_p.bits, dev)
+                args = (sc_p.bits, ux, uw)
+                kern, plain = ((sc_matmul_fused_cuda, sc_matmul_fused_ref) if fused
+                               else (sc_matmul_cuda, ref.sc_matmul_ref))
+            else:
+                xp, xn, wp, wn, pre = _array_planes(x, w, an_p)
+                args = adc
+                kern, plain = ((analog_matmul_fused_cuda, analog_matmul_fused_ref) if fused
+                               else (analog_matmul_cuda, ref.analog_matmul_ref))
+            xcat = torch.cat([xp, xn], dim=-1).contiguous()
+            halves = (wp, wn)
+            epis = [None]
+            if fused:
+                epis = [{}, {
+                    "colgain": (1 + 0.05 * torch.randn(N, generator=g, device=dev)).to(bf),
+                    "coladd": (0.02 * torch.randn(N, generator=g, device=dev)).to(bf),
+                    "mean_coeffs": torch.tensor([0.01, -0.02, 0.003, -0.0004], device=dev),
+                    "mean_scale": torch.tensor(1.7, device=dev),
+                }]
+            call = lambda f, e: (f(xcat, halves, *args, pre, e, bf) if fused
+                                 else f(xcat, halves, *args))
+            err = 0.0
+            for epi in epis:
+                got, want = call(kern, epi), call(plain, epi)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    diff = (got.float() - want.float()).abs().max().item()
+                    raise AssertionError(
+                        f"{kname} {M}x{K}x{N} epi={sorted(epi or {})}: not bitwise equal to "
+                        f"its plain version (max |diff| {diff})")
+                if kname == "analog_matmul" and not bool(want.abs().max() > 0):
+                    raise AssertionError(f"{kname} {M}x{K}x{N}: every output is zero")
+            if kname == "sc_matmul_packed" and (K, N) == (cfg.d_model, cfg.d_model):
+                # the packed-words entry on the reference kernel's interface
+                xbits = ref.sc_pack_streams(xcat, ux)
+                wbits = ref.sc_pack_streams(torch.cat(halves), uw[:, None, :])
+                words = sc_matmul_words_cuda(xbits, wbits, sc_p.bits)
+                want = ref.sc_matmul_packed_chunked_ref(xbits, wbits) / sc_p.bits
+                if not (torch.equal(words, want) and torch.equal(words, got)):
+                    raise AssertionError("sc_matmul_packed on pre-packed words disagrees")
+            work = M * 2 * K * N
+            ms = cuda_ms(lambda: call(kern, {}), 3 if work > 2e9 else 10)
+            plain_ms = cuda_ms(lambda: call(plain, {}), 1)
+            b_ms, b_by = _sc_analog_bound(kname, M, K, N, sc_p.bits)
+            row = {"name": kname, "shape": [M, K, N], "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": None}
+            print(f"[kernels] {json.dumps(row)}", flush=True)
+            if (K, N) == rep:
+                summary[kname] = row
+            del x, xp, xn, wp, wn, xcat, halves
+            torch.cuda.empty_cache()
+        del w
+    return summary
+
+
+BACKENDS = ("exact", "log_mult", "approx_mult", "sc", "analog")
+
+
+def _record_projections(names):
+    """Wrap the registry specs of ``names`` so every emulated projection is
+    kept as (name, fused, x, w, params, rng, epi, y); returns the list and
+    a function that restores the specs."""
+    from repro_torch.core import registry
+
+    seen, specs = [], {n: registry.get(n) for n in names}
+    for name, spec in specs.items():
+        def emulate(x, w, p, rng, _n=name, _s=spec):
+            y = _s.emulate(x, w, p, rng)
+            seen.append((_n, False, x, w, p, rng, None, y))
+            return y
+
+        def fused_emulate(x, w, p, rng, epi, _n=name, _s=spec):
+            y = _s.fused_emulate(x, w, p, rng, epi)
+            seen.append((_n, True, x, w, p, rng, epi, y))
+            return y
+
+        registry.register(dataclasses.replace(spec, emulate=emulate, fused_emulate=fused_emulate),
+                          override=True)
+
+    def restore():
+        for spec in specs.values():
+            registry.register(spec, override=True)
+
+    return seen, restore
+
+
 def phase_reference(dev):
     """The smoke config served on the card and on the CPU from the same
-    weights: greedy tokens equal, logits within 1e-3 (float32; cuBLAS and
-    the CPU sum in other orders, and the card runs the kernels)."""
+    weights and the same SC draws (made on the CPU).  Exact and
+    multiplier-error requests: greedy tokens equal, logits within 1e-3
+    (float32; cuBLAS and the CPU sum in other orders, and the card runs
+    the kernels).  SC and analog: each projection the card ran equals the
+    plain version's on the CPU from the same operands and draws, bit for
+    bit."""
     from repro_torch.configs import get_smoke_config
+    from repro_torch.core import registry
+    from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.runtime.engine import Engine, synthetic_requests
+
+    def cpu_draws(path, n_ports, n_bits, device):
+        return tuple(t.to(device) for t in ops.sc_draws(path, n_ports, n_bits, "cpu"))
 
     cfg = get_smoke_config("qwen2.5-3b")
     model = build_model(cfg)
     p_cpu = model.init(0, device="cpu")
     p_dev = model.init(0, device="cpu").to(dev)
-    queue = synthetic_requests(6, cfg.vocab_size, seed=0, prompt_lens=(3, 20),
-                               gen_lens=(4, 10), backends=("exact", "log_mult", "approx_mult"))
-    res = {}
+    queue = synthetic_requests(10, cfg.vocab_size, seed=0, prompt_lens=(3, 20),
+                               gen_lens=(4, 10), backends=BACKENDS)
+    res, seen = {}, []
     for name, params, device in (("cpu", p_cpu, "cpu"), ("cuda", p_dev, dev)):
-        eng = Engine(model, params, n_slots=2, max_seq=32, fused=True,
-                     collect_logits=True, device=device)
-        res[name] = eng.run(queue)
-    worst = 0.0
+        eng = Engine(model, params, n_slots=2, max_seq=32, fused=True, collect_logits=True,
+                     device=device, draws=cpu_draws)
+        if name == "cuda":
+            seen, restore = _record_projections(("sc", "analog"))
+        try:
+            res[name] = eng.run(queue)
+        finally:
+            if name == "cuda":
+                restore()
+    worst, agree, total = 0.0, 0, 0
     for rid, want in res["cpu"].items():
         got = res["cuda"][rid]
+        if len(got["tokens"]) != len(want["tokens"]):
+            raise AssertionError(f"smoke request {rid}: {len(got['tokens'])} tokens")
+        if got["backend"] in ("sc", "analog"):
+            agree += sum(a == b for a, b in zip(got["tokens"], want["tokens"]))
+            total += len(want["tokens"])
+            continue
         if got["tokens"] != want["tokens"]:
             raise AssertionError(f"smoke request {rid}: tokens {got['tokens']} != {want['tokens']}")
         for a, b in zip(got["logits"], want["logits"]):
             np.testing.assert_allclose(a, b, atol=1e-3, rtol=1e-3)
             worst = max(worst, float(np.abs(a - b).max()))
-    print(f"[reference] smoke engine on card == CPU: {len(res['cpu'])} requests, "
-          f"tokens equal, max |logit diff| {worst}", flush=True)
+    kinds = {(n, f) for n, f, *_ in seen}
+    if kinds != {(n, f) for n in ("sc", "analog") for f in (False, True)}:
+        raise AssertionError(f"smoke run projections: {sorted(kinds)}")
+    for name, fused, x, w, p, rng, epi, y in seen:
+        spec = registry.get(name)
+        xc, wc = x.cpu(), w.cpu()
+        want = spec.fused_emulate(xc, wc, p, rng, epi) if fused else spec.emulate(xc, wc, p, rng)
+        if not torch.equal(y.cpu(), want):
+            diff = (y.cpu().float() - want.float()).abs().max().item()
+            raise AssertionError(f"smoke {name} projection {tuple(x.shape)}x{tuple(w.shape)} "
+                                 f"fused={fused}: card != CPU (max |diff| {diff})")
+    print(f"[reference] smoke engine on card == CPU: {len(res['cpu'])} requests; exact and "
+          f"multiplier-error tokens equal, max |logit diff| {worst}; {len(seen)} SC/analog "
+          f"projections bitwise equal; SC/analog tokens equal end to end: {agree}/{total}",
+          flush=True)
 
 
 def phase_engine(dev, cfg, card: str):
@@ -214,10 +420,10 @@ def phase_engine(dev, cfg, card: str):
     n_params = sum(p.numel() for p in params.parameters())
     print(f"[engine] {cfg.name}: {n_params} params (bf16) on {dev} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    queue = synthetic_requests(8, cfg.vocab_size, seed=0, prompt_lens=(16, 64),
-                               gen_lens=(16, 32), backends=("exact", "log_mult", "approx_mult"))
+    queue = synthetic_requests(10, cfg.vocab_size, seed=0, prompt_lens=(16, 64),
+                               gen_lens=(16, 32), backends=BACKENDS)
     eng = Engine(model, params, n_slots=DECODE_M, max_seq=MAX_SEQ, fused=True,
-                 collect_logits=True, device=dev)
+                 collect_logits=True, device=dev, seed=0)
     build.reset_launches()
     t0 = time.perf_counter()
     results = eng.run(queue)
@@ -235,12 +441,21 @@ def phase_engine(dev, cfg, card: str):
         for row in r["logits"]:
             if row.shape != (cfg.vocab_size,) or not np.isfinite(row).all():
                 raise AssertionError(f"request {req.rid}: bad logits row {row.shape}")
-    missing = [k for k, n in launches.items() if n < 1]
+    missing = [k for k in PATH_KERNELS if launches[k] < 1]
     if missing:
         raise AssertionError(f"kernels never launched on the serving path: {missing}")
     metrics = dict(eng.metrics(), wall_s=wall, card=card)
     print(f"[engine] metrics {json.dumps(metrics)}", flush=True)
     print(f"[engine] launches {json.dumps(launches)}", flush=True)
+    # the same queue again on the warm engine: every call in steady state,
+    # so each lane's prefill and decode rates are measured
+    eng.reset_metrics()
+    again = [dataclasses.replace(r, rid=r.rid + len(queue)) for r in queue]
+    t0 = time.perf_counter()
+    eng.run(again)
+    torch.cuda.synchronize()
+    metrics = dict(eng.metrics(), wall_s=time.perf_counter() - t0, card=card)
+    print(f"[engine] steady-state metrics {json.dumps(metrics)}", flush=True)
     return launches
 
 
@@ -252,7 +467,6 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.kernels.build import LAUNCHES
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -273,6 +487,8 @@ def main() -> int:
     cfg = get_config("qwen2.5-3b")
     summary = phase_kernels(dev, cfg)
     torch.cuda.synchronize()
+    summary.update(phase_sc_analog(dev, cfg))
+    torch.cuda.synchronize()
     phase_reference(dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -280,20 +496,14 @@ def main() -> int:
     torch.cuda.synchronize()
 
     kernels = []
-    for name in LAUNCHES:
+    for name in PATH_KERNELS:
         row = summary[name]
+        source, replaces = KERNEL_SOURCES[name]
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": ("src/repro_torch/kernels/csrc/flash_decode.cu" if name == "flash_decode"
-                       else "src/repro_torch/kernels/csrc/vpu_matmul.cu"),
-            "replaces": {
-                "elementwise_matmul[approx_mult]": "src/repro/kernels/vpu_matmul.py:48",
-                "elementwise_matmul[log_mult]": "src/repro/kernels/vpu_matmul.py:48",
-                "elementwise_matmul_fused[approx_mult]": "src/repro/kernels/vpu_matmul.py:161",
-                "elementwise_matmul_fused[log_mult]": "src/repro/kernels/vpu_matmul.py:161",
-                "flash_decode": "src/repro/kernels/flash_decode.py:85",
-            }[name],
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
             "launches": launches[name],
             "shape": row["shape"],
             "max_abs_err": row["max_abs_err"],

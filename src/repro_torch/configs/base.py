@@ -3,7 +3,8 @@ the serving slice needs).
 
 * :class:`ModelConfig`  — architecture definition (one per ``--arch``).
 * :class:`ApproxConfig` — which approximate-hardware backend a model is
-  served for, and which mode (bit-accurate MODEL emulation or none).
+  served for, with each backend's hardware parameters, and which mode
+  (bit-accurate MODEL emulation or none).
 """
 from __future__ import annotations
 
@@ -26,11 +27,31 @@ class Backend(str, enum.Enum):
 
 
 @dataclasses.dataclass(frozen=True)
+class SCParams:
+    """Stochastic computing: split-unipolar streams, OR accumulation."""
+
+    bits: int = 32             # stream length (split-unipolar => 2x streams)
+    gain: float = 0.25         # value->probability gain before streaming
+
+
+@dataclasses.dataclass(frozen=True)
 class ApproxMultParams:
     """Behavioural truncated approximate multiplier (mul7u_* family)."""
 
     bits: int = 7              # operand bits (mul7u_*)
     perforate: int = 2         # low partial-product rows dropped (error model)
+
+
+@dataclasses.dataclass(frozen=True)
+class AnalogParams:
+    """Analog crossbar arrays with low-bit ADC partial-sum readout."""
+
+    adc_bits: int = 4          # partial-sum quantizer resolution
+    array_size: int = 128      # accumulations per analog array (K-block)
+    adc_range: float = 4.0     # clamp range of a partial sum, in units of
+                               # the input scale (HardTanh saturation point)
+    weight_bits: int = 8       # operand quantization on the array
+    input_bits: int = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,9 +77,10 @@ class ApproxConfig:
     backend: Backend = Backend.EXACT   # default backend for every site
     mode: TrainMode = TrainMode.NO_MODEL
 
-    # per-backend hardware parameters (field name == Backend value; the
-    # sc and analog params come with those backends)
+    # per-backend hardware parameters (field name == Backend value)
+    sc: SCParams = SCParams()
     approx_mult: ApproxMultParams = ApproxMultParams()
+    analog: AnalogParams = AnalogParams()
     log_mult: LogMultParams = LogMultParams()
 
     # ordered (site-pattern, backend-name) pairs; first fnmatch match wins

@@ -13,19 +13,48 @@ backward-gate, blend and calibration hooks are not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import zlib
+from typing import Callable, Optional, Tuple
 
 from repro_torch.configs.base import ApproxConfig, Backend, TrainMode
 from repro_torch.core import injection, registry
+from repro_torch.kernels import ops as kops
 
 
 @dataclasses.dataclass
 class ApproxCtx:
-    """Per-forward context: the serving config, and ``fused`` to route
+    """Per-forward context: the serving config, ``fused`` to route
     MODEL-mode projections through the backend's fused kernel (the
-    serving decode path)."""
+    serving decode path), and the random source of the stochastic
+    backends.
+
+    ``rng`` is a key path, the port's stand-in for a ``jax.random`` key:
+    a root seed followed by the values the reference ``fold_in``s into it
+    (the engine's tick, the layer index in prefill, ``crc32(site)``).
+    ``draws(path, n_ports, n_bits, device) -> (ux, uw)`` turns a site's
+    path into its generator sequences: by default the port's own
+    (:func:`repro_torch.kernels.ops.sc_draws`); a test may pass the JAX
+    reference's draws for the same path, so both packages see identical
+    streams.
+    """
 
     cfg: ApproxConfig
     fused: bool = False
+    rng: Tuple[int, ...] = (0,)
+    draws: Optional[Callable] = None
+
+    def site_rng(self, site: str) -> Callable:
+        """This site's draw source, ``(n_ports, n_bits, device) -> (ux, uw)``:
+        the ctx's path with ``crc32(site) & 0x7FFFFFFF`` folded in, as the
+        reference's ``ApproxCtx.site_rng``."""
+        path = tuple(self.rng) + (zlib.crc32(site.encode()) & 0x7FFFFFFF,)
+        return functools.partial(self.draws or kops.sc_draws, path)
+
+    def for_layer(self, idx: int) -> "ApproxCtx":
+        """The ctx of layer ``idx`` of a full-sequence forward: the layer
+        index folded into the path (the reference's per-layer key)."""
+        return dataclasses.replace(self, rng=tuple(self.rng) + (int(idx),))
 
 
 def skipped_site(site: str, cfg: ApproxConfig) -> bool:
@@ -41,11 +70,12 @@ def _approx_branch(x, w, site: str, backend, ctx: ApproxCtx):
             f"mode {cfg.mode.value!r} is not yet ported to repro_torch (serving uses MODEL)"
         )
     spec = registry.get(backend)
+    rng = ctx.site_rng(site)
     if ctx.fused and spec.fused_emulate is not None:
         # no chip and no correction: the epilogue is empty, as in the
         # reference when a lane has no fleet
-        return injection.fused_model_mode_matmul(x, w, cfg, {}, backend)
-    return injection.model_mode_matmul(x, w, cfg, backend)
+        return injection.fused_model_mode_matmul(x, w, cfg, rng, {}, backend)
+    return injection.model_mode_matmul(x, w, cfg, rng, backend)
 
 
 def dense(x, w, b=None, *, site: str = "", ctx: ApproxCtx = None):

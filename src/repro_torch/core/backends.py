@@ -1,27 +1,106 @@
-"""Bit-accurate forward emulation of the multiplier-error hardware (port
-of ``repro.core.backends``: the approx_mult and log_mult emulators, their
-fused variants, and the built-in registry entries).
+"""Bit-accurate forward emulation of the approximate hardware (port of
+``repro.core.backends``: the sc, analog, approx_mult and log_mult
+emulators, their fused variants, ``fake_quant_unipolar`` and the built-in
+registry entries).
 
-The value-domain scaling — per-token activation scale, per-tensor weight
-scale, rounding to signed integers — stays here in plain torch, op for op
-as in the reference (``torch.round`` rounds half to even like
-``jnp.round``); the kernels in :mod:`repro_torch.kernels.ops` do the
-integer-domain contraction.
+The value-domain scaling — dynamic scales, split-unipolar planes,
+operand quantisation — stays here in plain torch, op for op as in the
+reference (``torch.round`` rounds half to even like ``jnp.round``); the
+kernels in :mod:`repro_torch.kernels.ops` do the contractions.  Two
+details keep the ops those of the reference:
+
+* A Python constant meets a tensor as a 0-dim tensor of the tensor's
+  dtype (:func:`repro_torch.kernels.ref.const`), as JAX's weak typing
+  makes it: ``g / sx`` is a bf16 quotient for a bf16 ``sx``, ``levels**2``
+  is rounded to bf16 before it divides, and ``(r * rescale)`` is an f32
+  product.
+  PyTorch would compute ``g / sx`` as ``reciprocal(sx) * g`` and, on a
+  CUDA tensor, ``a / 255.0`` as ``a * (1 / 255)``.
+* Every emulator takes ``rng``, the site's source of generator draws
+  (``rng(n_ports, n_bits, device) -> (ux, uw)``, see
+  :meth:`repro_torch.core.approx_linear.ApproxCtx.site_rng`); only SC
+  reads it.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ApproxMultParams, Backend, LogMultParams
+from repro_torch.configs.base import (
+    AnalogParams,
+    ApproxMultParams,
+    Backend,
+    LogMultParams,
+    SCParams,
+)
 from repro_torch.core import registry
-from repro_torch.core.proxy import row_scale, tensor_scale
-from repro_torch.core.registry import BackendSpec
+from repro_torch.core.proxy import row_scale, split_signed, tensor_scale
+from repro_torch.core.registry import BackendSpec, concat_planes, split_unipolar_contract
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import const
 
 
-def _emulate_exact(x, w, p):
-    del p
+def fake_quant_unipolar(x, bits: int):
+    """Round a [0,1] tensor to ``bits`` levels.  The reference's
+    straight-through form ``x + stop_gradient(q - x)`` is kept as
+    ``x + (q - x)``, rounded in ``x``'s dtype: it need not equal ``q``."""
+    levels = (1 << bits) - 1
+    q = torch.round(x * levels) / const(levels, x)
+    return x + (q - x)
+
+
+def _emulate_exact(x, w, p, rng):
+    del p, rng
     return x @ w
+
+
+def _stream_planes(x, w, p: SCParams):
+    """Per-tensor scales and the clipped probability planes of SC."""
+    sx = tensor_scale(x)
+    sw = tensor_scale(w)
+    xp, xn = split_signed(x * (const(p.gain, sx) / sx))
+    wp, wn = split_signed(w * (const(p.gain, sw) / sw))
+    xp, xn, wp, wn = (torch.clamp(t, 0.0, 1.0) for t in (xp, xn, wp, wn))
+    rescale = (sx * sw) / const(p.gain * p.gain, sx)
+    return xp, xn, wp, wn, rescale
+
+
+def _emulate_sc(x, w, p: SCParams, rng):
+    """Split-unipolar streams, AND multiply, OR accumulate: the positive
+    output tree takes {xp*wp} U {xn*wn}, the negative {xp*wn} U {xn*wp},
+    one accumulation per polarity over 2K ports, both against the same
+    generator sequences."""
+    xp, xn, wp, wn, rescale = _stream_planes(x, w, p)
+    ux, uw = rng(2 * xp.shape[-1], p.bits, x.device)
+    r = split_unipolar_contract(
+        (xp, xn), (wp, wn), lambda a, b: kops.sc_matmul(a, b, p.bits, ux, uw)
+    )
+    return (r * rescale).to(x.dtype)
+
+
+def _array_planes(x, w, p: AnalogParams):
+    """Per-tensor scales and the quantised unipolar planes of an analog
+    array."""
+    sx = tensor_scale(x)
+    sw = tensor_scale(w)
+    xp, xn = split_signed(x / sx)
+    wp, wn = split_signed(w / sw)
+    xp = fake_quant_unipolar(xp, p.input_bits)
+    xn = fake_quant_unipolar(xn, p.input_bits)
+    wp = fake_quant_unipolar(wp, p.weight_bits)
+    wn = fake_quant_unipolar(wn, p.weight_bits)
+    return xp, xn, wp, wn, sx * sw
+
+
+def _emulate_analog(x, w, p: AnalogParams, rng):
+    """Operand quantisation, then one accumulation per polarity over the
+    2K unipolar ports, each array's partial sum through the ADC."""
+    del rng
+    xp, xn, wp, wn, prescale = _array_planes(x, w, p)
+    out = split_unipolar_contract(
+        (xp, xn), (wp, wn),
+        lambda a, b: kops.analog_matmul(a, b, p.array_size, p.adc_bits, p.adc_range),
+    )
+    return (out * prescale).to(x.dtype)
 
 
 def _int_operand_quantize(x, w, bits: int):
@@ -32,7 +111,7 @@ def _int_operand_quantize(x, w, bits: int):
     sw = tensor_scale(w)
     xi = torch.round(torch.clamp(x / sx, -1.0, 1.0) * levels)
     wi = torch.round(torch.clamp(w / sw, -1.0, 1.0) * levels)
-    return xi, wi, sx * sw / (levels * levels)
+    return xi, wi, sx * sw / const(levels * levels, sx)
 
 
 def _int_operand_emulate(x, w, bits: int, matmul):
@@ -43,13 +122,15 @@ def _int_operand_emulate(x, w, bits: int, matmul):
     return out.to(x.dtype)
 
 
-def _emulate_approx_mult(x, w, p: ApproxMultParams):
+def _emulate_approx_mult(x, w, p: ApproxMultParams, rng):
+    del rng
     return _int_operand_emulate(
         x, w, p.bits, lambda a, b: kops.approx_mult_matmul(a, b, p.bits, p.perforate)
     )
 
 
-def _emulate_log_mult(x, w, p: LogMultParams):
+def _emulate_log_mult(x, w, p: LogMultParams, rng):
+    del rng
     return _int_operand_emulate(x, w, p.bits, kops.log_matmul)
 
 
@@ -66,7 +147,8 @@ def _fused_int_operand(x, w, bits: int, fused_matmul, epi: dict):
     return y.reshape(x.shape[:-1] + (w.shape[-1],))
 
 
-def _fused_emulate_approx_mult(x, w, p: ApproxMultParams, epi):
+def _fused_emulate_approx_mult(x, w, p: ApproxMultParams, rng, epi):
+    del rng
     return _fused_int_operand(
         x, w, p.bits,
         lambda a, b, pre, e, dt: kops.approx_mult_matmul_fused(
@@ -76,14 +158,48 @@ def _fused_emulate_approx_mult(x, w, p: ApproxMultParams, epi):
     )
 
 
-def _fused_emulate_log_mult(x, w, p: LogMultParams, epi):
+def _fused_emulate_log_mult(x, w, p: LogMultParams, rng, epi):
+    del rng
     return _fused_int_operand(x, w, p.bits, kops.log_matmul_fused, epi)
+
+
+def _fused_emulate_sc(x, w, p: SCParams, rng, epi):
+    xp, xn, wp, wn, rescale = _stream_planes(x, w, p)
+    ux, uw = rng(2 * xp.shape[-1], p.bits, x.device)
+    y = kops.sc_matmul_fused(concat_planes(xp, xn), (wp, wn), p.bits, ux, uw, rescale, epi, x.dtype)
+    return y.reshape(x.shape[:-1] + (w.shape[-1],))
+
+
+def _fused_emulate_analog(x, w, p: AnalogParams, rng, epi):
+    del rng
+    xp, xn, wp, wn, prescale = _array_planes(x, w, p)
+    y = kops.analog_matmul_fused(
+        concat_planes(xp, xn), (wp, wn), p.array_size, p.adc_bits, p.adc_range, prescale, epi,
+        x.dtype,
+    )
+    return y.reshape(x.shape[:-1] + (w.shape[-1],))
 
 
 registry.register(BackendSpec(
     name=Backend.EXACT.value,
     params_cls=type(None),
     emulate=_emulate_exact,
+))
+
+registry.register(BackendSpec(
+    name=Backend.SC.value,
+    params_cls=SCParams,
+    emulate=_emulate_sc,
+    fused_emulate=_fused_emulate_sc,
+    kernels=kops.KERNELS["sc"],
+))
+
+registry.register(BackendSpec(
+    name=Backend.ANALOG.value,
+    params_cls=AnalogParams,
+    emulate=_emulate_analog,
+    fused_emulate=_fused_emulate_analog,
+    kernels=kops.KERNELS["analog"],
 ))
 
 registry.register(BackendSpec(

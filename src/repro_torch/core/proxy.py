@@ -1,9 +1,14 @@
-"""Dynamic operand scales (port of ``tensor_scale`` and ``row_scale`` from
-``repro.core.proxy``; the proxy activations belong to training and are
-not ported yet)."""
+"""Operand splitting and dynamic scales (port of ``split_signed``,
+``tensor_scale`` and ``row_scale`` from ``repro.core.proxy``; the proxy
+activations belong to training and are not ported yet)."""
 from __future__ import annotations
 
 import torch
+
+
+def split_signed(x):
+    """Split a signed tensor into its unipolar halves (both >= 0)."""
+    return torch.clamp_min(x, 0.0), torch.clamp_min(-x, 0.0)
 
 
 def tensor_scale(x, eps: float = 1e-6):
@@ -16,6 +21,8 @@ def row_scale(x, eps: float = 1e-6):
     """Per-row (per-token) dynamic scale: max |x| over the contraction
     axis, keepdims.  Per-token quantisation keeps the multiplier-error
     emulations batch-invariant: a request's quantisation grid never
-    depends on what shares its slot batch."""
+    depends on what shares its slot batch.  The SC and analog emulators
+    keep per-tensor activation scales (a device property), as in the
+    reference, so their outputs depend on the whole batch."""
     m = torch.amax(torch.abs(x), dim=-1, keepdim=True)
     return torch.maximum(m, torch.tensor(eps, dtype=x.dtype, device=x.device))

@@ -3,26 +3,28 @@
 Every hardware target is one :class:`BackendSpec`: its params class, its
 bit-accurate emulator, its optional fused emulator and its kernel
 handles.  ``dense()`` dispatches through :func:`get`.  The built-in specs
-(exact, approx_mult, log_mult) are registered by
-:mod:`repro_torch.core.backends`; ``sc`` and ``analog`` are not ported
-yet and raise.
+(exact, sc, approx_mult, analog, log_mult) are registered by
+:mod:`repro_torch.core.backends`.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
-from repro_torch.configs.base import Backend
+import torch
 
-NOT_PORTED = (Backend.SC.value, Backend.ANALOG.value)
+from repro_torch.configs.base import Backend
 
 
 @dataclasses.dataclass(frozen=True)
 class BackendSpec:
     """What serving needs to emulate one hardware target.
 
-    * ``emulate``       — bit-accurate forward ``(x, w, params) -> y``.
-    * ``fused_emulate`` — ``(x, w, params, epi) -> y`` with the
+    * ``emulate``       — bit-accurate forward ``(x, w, params, rng) -> y``;
+      ``rng`` is the site's generator-sequence source (see
+      :meth:`repro_torch.core.approx_linear.ApproxCtx.site_rng`), which
+      only the stochastic backends read.
+    * ``fused_emulate`` — ``(x, w, params, rng, epi) -> y`` with the
       chip/calibration epilogue ``epi`` applied in the same kernel, or
       ``None`` for no fused path (``dense()`` then runs ``emulate``).
     * ``kernels``       — named kernel handles (``repro_torch.kernels.ops``).
@@ -56,8 +58,6 @@ def get(backend: Union[Backend, str]) -> BackendSpec:
     """The spec for a backend (enum member or registry name)."""
     _ensure_builtins()
     name = backend.value if isinstance(backend, Backend) else str(backend)
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"backend {name!r} is not yet ported to repro_torch")
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -67,3 +67,35 @@ def get(backend: Union[Backend, str]) -> BackendSpec:
 def names() -> Tuple[str, ...]:
     _ensure_builtins()
     return tuple(sorted(_REGISTRY))
+
+
+# Shared split-unipolar plumbing.  Signed operands on unipolar hardware
+# split into positive and negative planes: z_pos = xp@wp + xn@wn and
+# z_neg = xp@wn + xn@wp, one physical accumulation per polarity over the
+# concatenated 2K unipolar ports.
+
+
+def split_unipolar_contract(x_halves, w_halves, matmul: Callable):
+    """Contract split-unipolar operand planes through a unipolar matmul.
+
+    ``x_halves = (xp, xn)`` with shape [..., K] (both >= 0), ``w_halves =
+    (wp, wn)`` with shape [K, N].  ``matmul(a, (top, bottom))`` is the
+    backend's unipolar 2-D contraction of ``a`` [rows, 2K] with the
+    [2K, N] plane whose rows 0..K-1 are ``top`` and rows K..2K-1 are
+    ``bottom``: the reference's ``concatenate([wp, wn])`` and
+    ``concatenate([wn, wp])``, passed as halves so the kernels read the
+    planes in place.  Called once per output polarity, positive first;
+    returns ``pos - neg`` reshaped to [..., N] (value-domain rescale is
+    the caller's job).
+    """
+    xp, xn = x_halves
+    wp, wn = w_halves
+    xcat = concat_planes(xp, xn)
+    r = matmul(xcat, (wp, wn)) - matmul(xcat, (wn, wp))
+    return r.reshape(xp.shape[:-1] + (wp.shape[-1],))
+
+
+def concat_planes(xp, xn):
+    """The [rows, 2K] activation plane of the 2K unipolar ports."""
+    K = xp.shape[-1]
+    return torch.cat([xp, xn], dim=-1).reshape(-1, 2 * K)

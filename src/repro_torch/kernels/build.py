@@ -47,6 +47,30 @@ SIGNATURES = {
         # in_bf16, q, ck, cv, pos, out, B, S, KV, G, dh, scale, stream
         "flash_decode": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     },
+    "sc_matmul": {
+        # in_bf16, x, wa, wb, ux, uw, tab, xbits, acc, out, M, N, K, bits, stream
+        "sc_matmul": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # xbits, wbits, acc, out, M, N, ports, bits, stream
+        "sc_matmul_words": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # in_bf16, out_bf16, x, wp, wn, ux, uw, tab, xbits, acc_p, acc_n,
+        # pre, gain, add, coeffs, P, mean_scale, eps, out, M, N, K, bits, stream
+        "sc_matmul_fused": (
+            _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _P,
+            _I, _I, _I, _I, _P,
+        ),
+    },
+    "analog_matmul": {
+        # M, N, K, array_size, dual
+        "analog_scratch_floats": (_I, _I, _I, _I, _I),
+        # in_bf16, x, wa, wb, q, out, M, N, K, array_size, adc_bits, adc_range, stream
+        "analog_matmul": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+        # in_bf16, out_bf16, x, wp, wn, q, sums, pre, gain, add, coeffs, P,
+        # mean_scale, eps, out, M, N, K, array_size, adc_bits, adc_range, stream
+        "analog_matmul_fused": (
+            _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _P,
+            _I, _I, _I, _I, _I, _F, _P,
+        ),
+    },
 }
 
 # kernel name -> launches since the last reset_launches()
@@ -56,6 +80,12 @@ LAUNCHES: Dict[str, int] = {
     "elementwise_matmul_fused[approx_mult]": 0,
     "elementwise_matmul_fused[log_mult]": 0,
     "flash_decode": 0,
+    "sc_matmul_packed": 0,
+    "sc_matmul_packed_fused": 0,
+    "analog_matmul": 0,
+    "analog_matmul_fused": 0,
+    # K4's contraction on pre-packed words: a check entry, off the serving path
+    "sc_matmul_packed[words]": 0,
 }
 # library -> nvcc's output (register and shared-memory use per kernel)
 BUILD_LOG: Dict[str, str] = {}

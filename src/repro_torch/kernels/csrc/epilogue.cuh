@@ -1,6 +1,7 @@
 // MODEL-mode epilogue as device functions: the CUDA counterpart of
 // repro_torch/kernels/epilogue.py (and of repro/kernels/epilogue.py, whose
-// apply_epilogue the Pallas fused kernels run in-register).
+// apply_epilogue the Pallas fused kernels run in-register), and the
+// finishing passes that apply it for the fused kernels K2, K5 and K7.
 //
 // Every operation runs in the output dtype and rounds to it after each op,
 // exactly as the plain PyTorch epilogue does.  Products and sums use the
@@ -9,6 +10,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 namespace repro_epi {
 
@@ -76,6 +78,82 @@ __device__ __forceinline__ float chip(float y, bool has_gain, float g, float a, 
   const float off = rnd<T>(__fmul_rn(a, scale));
   const float base = has_gain ? rnd<T>(__fmul_rn(y, g)) : y;
   return rnd<T>(__fadd_rn(base, off));
+}
+
+// Launch helpers shared by the kernels.
+inline int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n > 0 ? n : 1;
+}
+
+inline int grid_for(size_t n, int threads) {
+  size_t b = (n + threads - 1) / threads;
+  return (int)(b < 8192 ? (b > 0 ? b : 1) : 8192);
+}
+
+// The finishing passes of a fused kernel.  V is a functor whose
+// operator()(i, m) gives output i = m * N + n before the epilogue: the
+// contraction's value times the row's prescale, rounded to T.
+
+// Epilogue without chip terms: elementwise.
+template <typename T, typename V>
+__global__ void finish_elementwise(V val, const float* __restrict__ coeffs, int P,
+                                   float mean_scale, T* __restrict__ out, int M, int N) {
+  const size_t n = (size_t)M * N;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float y = val(i, (int)(i / N));
+    if (P > 0) y = correct<T>(y, coeffs, P, mean_scale);
+    store<T>(out, i, y);
+  }
+}
+
+// Epilogue with chip terms: one block per row, row max first (a max is
+// order-free, so the row scale is the same bits as the plain version's).
+template <typename T, typename V>
+__global__ void finish_rows(V val, const T* __restrict__ gain, const T* __restrict__ add,
+                            const float* __restrict__ coeffs, int P, float mean_scale, float eps,
+                            T* __restrict__ out, int N) {
+  __shared__ float red[32];
+  const int m = blockIdx.x;
+  const size_t row = (size_t)m * N;
+  float mx = 0.0f;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) mx = fmaxf(mx, fabsf(val(row + n, m)));
+  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    mx = threadIdx.x < (blockDim.x >> 5) ? red[threadIdx.x] : 0.0f;
+    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    if (threadIdx.x == 0) red[0] = mx;
+  }
+  __syncthreads();
+  const float scale = rnd<T>(fmaxf(red[0], eps));
+  const bool has_gain = gain != nullptr;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    float y = val(row + n, m);
+    y = chip<T>(y, has_gain, has_gain ? load<T>(gain, n) : 0.0f, load<T>(add, n), scale);
+    if (P > 0) y = correct<T>(y, coeffs, P, mean_scale);
+    store<T>(out, row + n, y);
+  }
+}
+
+// Launch the finishing pass: chip terms when add != NULL (gain may be NULL:
+// fault family), then the correction polynomial when P > 0.
+template <typename T, typename V>
+void finish(V val, const void* gain, const void* add, const float* coeffs, int P,
+            float mean_scale, float eps, void* out, int M, int N, cudaStream_t st) {
+  T* o = static_cast<T*>(out);
+  if (add == nullptr) {
+    finish_elementwise<T><<<grid_for((size_t)M * N, 256), 256, 0, st>>>(val, coeffs, P,
+                                                                        mean_scale, o, M, N);
+  } else {
+    finish_rows<T><<<M, 512, 0, st>>>(val, static_cast<const T*>(gain),
+                                      static_cast<const T*>(add), coeffs, P, mean_scale, eps, o,
+                                      N);
+  }
 }
 
 }  // namespace repro_epi

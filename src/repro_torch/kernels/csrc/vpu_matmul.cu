@@ -39,6 +39,9 @@
 
 #include "epilogue.cuh"
 
+// Named so a profiler trace attributes every kernel of this file, its
+// finishing passes included, to it.
+namespace repro_vpu {
 namespace {
 
 constexpr int MUL_APPROX = 0;    // truncated product (approx_mult)
@@ -157,20 +160,13 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
   }
 }
 
-int sm_count() {
-  int dev = 0, n = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n > 0 ? n : 1;
-}
-
 template <int MUL, typename T, int BM, int BN, int BK, int TM, int TN>
 void run_contract(const T* x, const T* w, int* acc, int M, int N, int K, int drop_bits,
                   cudaStream_t st) {
   const int gx = (N + BN - 1) / BN, gy = (M + BM - 1) / BM;
   const int kblocks = (K + BK - 1) / BK;
   // split K until about two blocks per SM are in flight
-  const int want = (2 * sm_count() + gx * gy - 1) / (gx * gy);
+  const int want = (2 * repro_epi::sm_count() + gx * gy - 1) / (gx * gy);
   const int parts = std::min(kblocks, std::max(1, want));
   const int k_split = ((kblocks + parts - 1) / parts) * BK;
   const int splits = (K + k_split - 1) / k_split;
@@ -205,10 +201,7 @@ void contract_dispatch(int mul, int in_bf16, const void* x, const void* w, int* 
   }
 }
 
-int grid_for(size_t n, int threads) {
-  size_t b = (n + threads - 1) / threads;
-  return (int)(b < 8192 ? (b > 0 ? b : 1) : 8192);
-}
+using repro_epi::grid_for;
 
 __global__ void to_float(const int* __restrict__ acc, float* __restrict__ out, size_t n) {
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
@@ -216,69 +209,21 @@ __global__ void to_float(const int* __restrict__ acc, float* __restrict__ out, s
     out[i] = __int2float_rn(acc[i]);
 }
 
-// K2 epilogue without chip terms: elementwise.
+// K2's value before the epilogue: the int32 sum times the row's prescale,
+// rounded to the output type.
 template <typename T>
-__global__ void finish_elementwise(const int* __restrict__ acc, const float* __restrict__ pre,
-                                   const float* __restrict__ coeffs, int P, float mean_scale,
-                                   T* __restrict__ out, int M, int N) {
-  const size_t n = (size_t)M * N;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float y = repro_epi::rnd<T>(__fmul_rn(__int2float_rn(acc[i]), pre[i / N]));
-    if (P > 0) y = repro_epi::correct<T>(y, coeffs, P, mean_scale);
-    repro_epi::store<T>(out, i, y);
+struct ScaledSum {
+  const int* acc;
+  const float* pre;
+  __device__ float operator()(size_t i, int m) const {
+    return repro_epi::rnd<T>(__fmul_rn(__int2float_rn(acc[i]), pre[m]));
   }
-}
-
-// K2 epilogue with chip terms: one block per row, row max first.
-template <typename T>
-__global__ void finish_rows(const int* __restrict__ acc, const float* __restrict__ pre,
-                            const T* __restrict__ gain, const T* __restrict__ add,
-                            const float* __restrict__ coeffs, int P, float mean_scale, float eps,
-                            T* __restrict__ out, int N) {
-  __shared__ float red[32];
-  const int m = blockIdx.x;
-  const float pm = pre[m];
-  const int* row = acc + (size_t)m * N;
-  float mx = 0.0f;
-  for (int n = threadIdx.x; n < N; n += blockDim.x)
-    mx = fmaxf(mx, fabsf(repro_epi::rnd<T>(__fmul_rn(__int2float_rn(row[n]), pm))));
-  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = mx;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    mx = threadIdx.x < (blockDim.x >> 5) ? red[threadIdx.x] : 0.0f;
-    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    if (threadIdx.x == 0) red[0] = mx;
-  }
-  __syncthreads();
-  const float scale = repro_epi::rnd<T>(fmaxf(red[0], eps));
-  const bool has_gain = gain != nullptr;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    float y = repro_epi::rnd<T>(__fmul_rn(__int2float_rn(row[n]), pm));
-    y = repro_epi::chip<T>(y, has_gain, has_gain ? repro_epi::load<T>(gain, n) : 0.0f,
-                           repro_epi::load<T>(add, n), scale);
-    if (P > 0) y = repro_epi::correct<T>(y, coeffs, P, mean_scale);
-    repro_epi::store<T>(out, (size_t)m * N + n, y);
-  }
-}
-
-template <typename T>
-void finish(const int* acc, const float* pre, const void* gain, const void* add,
-            const float* coeffs, int P, float mean_scale, float eps, void* out, int M, int N,
-            cudaStream_t st) {
-  T* o = static_cast<T*>(out);
-  if (add == nullptr) {
-    finish_elementwise<T><<<grid_for((size_t)M * N, 256), 256, 0, st>>>(acc, pre, coeffs, P,
-                                                                        mean_scale, o, M, N);
-  } else {
-    finish_rows<T><<<M, 512, 0, st>>>(acc, pre, static_cast<const T*>(gain),
-                                      static_cast<const T*>(add), coeffs, P, mean_scale, eps, o,
-                                      N);
-  }
-}
+};
 
 }  // namespace
+}  // namespace repro_vpu
+
+using namespace repro_vpu;
 
 // K1: out[M,N] (float32) = sum_k mul(x[m,k], w[k,n]).  x, w: integer-valued
 // float32 or bfloat16, row-major; acc: int32 [M,N] scratch.
@@ -300,9 +245,11 @@ extern "C" int vpu_matmul_fused(int mul, int in_bf16, int out_bf16, const void* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   contract_dispatch(mul, in_bf16, x, w, acc, M, N, K, drop_bits, st);
   if (out_bf16)
-    finish<__nv_bfloat16>(acc, pre, gain, add, coeffs, P, mean_scale, eps, out, M, N, st);
+    repro_epi::finish<__nv_bfloat16>(ScaledSum<__nv_bfloat16>{acc, pre}, gain, add, coeffs, P,
+                                     mean_scale, eps, out, M, N, st);
   else
-    finish<float>(acc, pre, gain, add, coeffs, P, mean_scale, eps, out, M, N, st);
+    repro_epi::finish<float>(ScaledSum<float>{acc, pre}, gain, add, coeffs, P, mean_scale, eps,
+                             out, M, N, st);
   return (int)cudaGetLastError();
 }
 

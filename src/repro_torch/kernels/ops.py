@@ -9,11 +9,17 @@ handles (:data:`KERNELS`).
 """
 from __future__ import annotations
 
+import hashlib
+from typing import Tuple
 
+import torch
+
+from repro_torch.kernels import analog_matmul as _analog
 from repro_torch.kernels import approx_mult as _amult
 from repro_torch.kernels import flash_decode as _flash
 from repro_torch.kernels import log_matmul as _log
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels import sc_matmul as _sc
 from repro_torch.kernels.vpu_matmul import elementwise_matmul_fused_ref
 
 
@@ -28,6 +34,42 @@ def _on_cuda(*tensors) -> bool:
         f"kernels take CPU tensors (plain version) or CUDA tensors (kernel); "
         f"got devices {sorted(str(t.device) for t in tensors)}"
     )
+
+
+def sc_draws(key: Tuple[int, ...], n_ports: int, n_bits: int, device):
+    """The generator sequences of one SC projection: ``ux`` [1, n_bits],
+    shared by every activation port, and ``uw`` [n_ports, n_bits], one
+    per weight row, uniform in [0, 1) as float32.
+
+    ``key`` is the projection's key path (a root seed, then the values
+    folded in: engine tick, layer, site; see :class:`repro_torch.core.
+    approx_linear.ApproxCtx`).  The reference draws these with
+    ``jax.random.uniform`` from the same path of ``fold_in``s; the port
+    draws them from a ``torch.Generator`` on ``device`` seeded by a hash of
+    the path, so equal paths give equal draws, run after run.
+    """
+    digest = hashlib.blake2b(repr(tuple(int(k) for k in key)).encode(), digest_size=8)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int.from_bytes(digest.digest(), "little") & 0x7FFF_FFFF_FFFF_FFFF)
+    ux = torch.rand((1, n_bits), generator=gen, dtype=torch.float32, device=device)
+    uw = torch.rand((n_ports, n_bits), generator=gen, dtype=torch.float32, device=device)
+    return ux, uw
+
+
+def sc_matmul(xp, w, n_bits: int, ux, uw):
+    """Probability-domain [M, 2K] @ [2K, N] through SC streams; ``w`` is the
+    plane's ``(top, bottom)`` halves, ``ux``/``uw`` the generator draws."""
+    if _on_cuda(xp, *w, ux, uw):
+        return _sc.sc_matmul_cuda(xp, w, n_bits, ux, uw)
+    return kref.sc_matmul_ref(xp, w, n_bits, ux, uw)
+
+
+def analog_matmul(x, w, array_size: int, adc_bits: int, adc_range: float):
+    """Unipolar [M, 2K] @ [2K, N] with per-array ADC quantisation; ``w`` is
+    the plane's ``(top, bottom)`` halves."""
+    if _on_cuda(x, *w):
+        return _analog.analog_matmul_cuda(x, w, array_size, adc_bits, adc_range)
+    return kref.analog_matmul_ref(x, w, array_size, adc_bits, adc_range)
 
 
 def approx_mult_matmul(x, w, mult_bits: int, perforate: int):
@@ -67,6 +109,28 @@ def log_matmul_fused(x, w, prescale, epi: dict, out_dtype):
     )
 
 
+def sc_matmul_fused(xcat, w, n_bits: int, ux, uw, prescale, epi: dict, out_dtype):
+    """Dual-plane SC stream contraction with the fused epilogue; ``w`` is
+    ``(wp, wn)``, the halves of w_pos = [wp; wn] and w_neg = [wn; wp]."""
+    if _on_cuda(xcat, *w, ux, uw):
+        return _sc.sc_matmul_fused_cuda(xcat, w, n_bits, ux, uw, prescale, epi, out_dtype)
+    return _sc.sc_matmul_fused_ref(xcat, w, n_bits, ux, uw, prescale, epi, out_dtype)
+
+
+def analog_matmul_fused(
+    xcat, w, array_size: int, adc_bits: int, adc_range: float, prescale, epi: dict, out_dtype
+):
+    """Dual-plane unipolar contraction with ADC quantisation, rescale and
+    the fused epilogue; ``w`` is ``(wp, wn)`` as for :func:`sc_matmul_fused`."""
+    if _on_cuda(xcat, *w):
+        return _analog.analog_matmul_fused_cuda(
+            xcat, w, array_size, adc_bits, adc_range, prescale, epi, out_dtype
+        )
+    return _analog.analog_matmul_fused_ref(
+        xcat, w, array_size, adc_bits, adc_range, prescale, epi, out_dtype
+    )
+
+
 def flash_decode_attention(q, cache_k, cache_v, pos_vec):
     """Online-softmax decode attention (``q`` [B,KV,G,dh] against caches
     [B,S,KV,dh] at per-row ``pos_vec``) -> [B,KV,G,dh] float32."""
@@ -77,6 +141,8 @@ def flash_decode_attention(q, cache_k, cache_v, pos_vec):
 
 # Named kernel handles per approximate backend (BackendSpec.kernels).
 KERNELS = {
+    "sc": {"matmul": sc_matmul, "matmul_fused": sc_matmul_fused},
+    "analog": {"matmul": analog_matmul, "matmul_fused": analog_matmul_fused},
     "approx_mult": {
         "matmul": approx_mult_matmul,
         "matmul_fused": approx_mult_matmul_fused,

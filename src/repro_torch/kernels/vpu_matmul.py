@@ -14,6 +14,7 @@ integer, where the plain version would multiply it as a float.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Optional
 
 import torch
@@ -78,6 +79,53 @@ def _row_operand(v, N: int, dtype, device) -> Optional[torch.Tensor]:
     return v.expand(N).contiguous()
 
 
+@dataclasses.dataclass
+class EpilogueOperands:
+    """The per-row prescale and the epilogue ``epi`` of a fused kernel, as
+    the C entry points take them (holds the tensors while they run)."""
+
+    pre: torch.Tensor
+    gain: Optional[torch.Tensor]
+    add: Optional[torch.Tensor]
+    coeffs: Optional[torch.Tensor]
+    P: int
+    mean_scale: float
+    eps: float
+
+    def pointers(self) -> tuple:
+        """``pre, gain, add, coeffs, P, mean_scale, eps`` (NULL for absent)."""
+        ptr = lambda t: None if t is None else t.data_ptr()
+        return (self.pre.data_ptr(), ptr(self.gain), ptr(self.add), ptr(self.coeffs),
+                self.P, self.mean_scale, self.eps)
+
+
+def epilogue_operands(M: int, N: int, prescale, epi: Dict, out_dtype, dev) -> EpilogueOperands:
+    """Check and lay out a fused kernel's prescale (a scalar or one value
+    per row) and epilogue operands (see :func:`repro_torch.kernels.
+    epilogue.apply_epilogue`)."""
+    if out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"out_dtype must be float32 or bfloat16; got {out_dtype}")
+    if epi.get("colgain") is not None and epi.get("coladd") is None:
+        raise ValueError("epilogue colgain needs coladd")
+    pre = torch.as_tensor(prescale, device=dev).to(torch.float32).reshape(-1)
+    pre = pre.expand(M).contiguous() if pre.numel() == 1 else pre.contiguous()
+    if pre.numel() != M:
+        raise ValueError(f"prescale must have M={M} entries; got {pre.numel()}")
+    coeffs = epi.get("mean_coeffs")
+    P, mean_scale = 0, 1.0
+    if coeffs is not None:
+        coeffs = torch.as_tensor(coeffs, dtype=torch.float32, device=dev).reshape(-1).contiguous()
+        P = coeffs.numel()
+        mean_scale = float(torch.as_tensor(epi["mean_scale"], dtype=torch.float32))
+    return EpilogueOperands(
+        pre=pre,
+        gain=_row_operand(epi.get("colgain"), N, out_dtype, dev),
+        add=_row_operand(epi.get("coladd"), N, out_dtype, dev),
+        coeffs=coeffs, P=P, mean_scale=mean_scale,
+        eps=float(torch.tensor(ROW_EPS, dtype=out_dtype)),  # eps as the epilogue's dtype holds it
+    )
+
+
 def elementwise_matmul_fused_cuda(
     x, w, mul: str, prescale, epi: Dict, out_dtype, drop_bits: int = 0
 ):
@@ -85,34 +133,16 @@ def elementwise_matmul_fused_cuda(
     ``out_dtype`` and the MODEL-mode epilogue ``epi`` (see
     :func:`repro_torch.kernels.epilogue.apply_epilogue`) in one call."""
     _check(x, w)
-    if out_dtype not in _DTYPE_CODE:
-        raise ValueError(f"out_dtype must be float32 or bfloat16; got {out_dtype}")
     M, K = x.shape
     N = w.shape[1]
     dev = x.device
-    if epi.get("colgain") is not None and epi.get("coladd") is None:
-        raise ValueError("epilogue colgain needs coladd")
-    pre = torch.as_tensor(prescale, device=dev).to(torch.float32).reshape(-1)
-    pre = pre.expand(M).contiguous() if pre.numel() == 1 else pre.contiguous()
-    if pre.numel() != M:
-        raise ValueError(f"prescale must have M={M} entries; got {pre.numel()}")
-    gain = _row_operand(epi.get("colgain"), N, out_dtype, dev)
-    add = _row_operand(epi.get("coladd"), N, out_dtype, dev)
-    coeffs = epi.get("mean_coeffs")
-    P, mean_scale = 0, 1.0
-    if coeffs is not None:
-        coeffs = torch.as_tensor(coeffs, dtype=torch.float32, device=dev).reshape(-1).contiguous()
-        P = coeffs.numel()
-        mean_scale = float(torch.as_tensor(epi["mean_scale"], dtype=torch.float32))
-    eps = float(torch.tensor(ROW_EPS, dtype=out_dtype))  # eps as the epilogue's dtype holds it
+    ops = epilogue_operands(M, N, prescale, epi, out_dtype, dev)
     acc = torch.empty((M, N), dtype=torch.int32, device=dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    ptr = lambda t: None if t is None else t.data_ptr()
     build.launch(
         f"elementwise_matmul_fused[{mul}]", "vpu_matmul", "vpu_matmul_fused",
         _MUL_CODE[mul], _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
-        x.data_ptr(), w.data_ptr(), pre.data_ptr(), ptr(gain), ptr(add),
-        ptr(coeffs), P, mean_scale, eps, acc.data_ptr(), out.data_ptr(),
+        x.data_ptr(), w.data_ptr(), *ops.pointers(), acc.data_ptr(), out.data_ptr(),
         M, N, K, drop_bits, torch.cuda.current_stream(dev).cuda_stream,
     )
     return out

@@ -1,0 +1,159 @@
+"""Where one emulated decode step spends its time on the card.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_decode --arch qwen2.5-3b \\
+      --backends exact,log_mult,approx_mult,sc,analog --out profile.json
+
+For each backend, the engine's batch of ``SLOTS`` rows decodes through
+the fused path (``serve_step`` with ``fused`` and flash attention) at
+position ``POS``, random weights from ``--seed``.  After ``WARMUP`` steps
+it times ``STEPS`` steps on the host clock (each ending in
+``torch.cuda.synchronize``), then traces as many with ``torch.profiler``
+and sums the device time of every kernel.  It prints, per backend: wall
+ms per step, device ms per step, the device's busy share (device time /
+wall time), and the device time by group (the card's name and power
+limit head the report): the port's hand-written
+kernels (K1-K7 and their finishing passes), PyTorch's elementwise and
+reduction kernels (the plain-torch value-domain code: scales, planes,
+quantisation), GEMMs, and the rest.
+
+Needs a CUDA device; it does not fall back to the CPU.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import time
+
+import torch
+
+SLOTS, POS, MAX_SEQ = 4, 48, 96  # chip_smoke.py's engine: 4 slots, 96 positions
+WARMUP, STEPS = 2, 3
+
+GROUPS = (  # (group, substrings of a kernel's name), first match wins
+    # the CUDA sources name their namespaces; a finishing pass carries its
+    # kernel's functor type in its name
+    ("K4/K5 sc_matmul.cu", ("repro_sc::",)),
+    ("K6/K7 analog_matmul.cu", ("repro_analog::",)),
+    ("K1/K2 vpu_matmul.cu", ("repro_vpu::",)),
+    ("K3 flash_decode.cu", ("flash_decode",)),
+    ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "gemv", "nvjet")),
+    ("PyTorch reductions", ("reduce",)),
+    ("PyTorch elementwise", ("elementwise", "unrolled", "vectorized")),
+    ("memset and copies", ("memset", "memcpy")),
+)
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    for group, keys in GROUPS:
+        if any(k.lower() in low for k in keys):
+            return group
+    return "other"
+
+
+def profile_backend(params, cfg, backend: str, seed: int) -> dict:
+    from torch.autograd import DeviceType
+
+    from repro_torch.configs.base import ApproxConfig, Backend, TrainMode
+    from repro_torch.core.approx_linear import ApproxCtx
+    from repro_torch.models import decode as D
+
+    dev = params.device
+    cache = D.init_cache(cfg, SLOTS, MAX_SEQ, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for key in ("k", "v"):
+        cache[key].normal_(generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (SLOTS, 1), generator=gen, device=dev)
+    pos = torch.full((SLOTS,), POS, dtype=torch.int32, device=dev)
+    approx = ApproxConfig(backend=Backend(backend), mode=TrainMode.MODEL)
+    tick = [0]
+
+    def step():
+        tick[0] += 1
+        ctx = None
+        if approx.active:
+            ctx = ApproxCtx(cfg=approx, fused=True, rng=(seed, tick[0]))
+        logits, _ = D.serve_step(params, cache, tokens, pos, cfg, ctx=ctx, flash=True)
+        return logits
+
+    for _ in range(WARMUP):
+        step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            step()
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+    by_kernel: dict = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    device_ms = sum(by_kernel.values()) / 1e3 / STEPS
+    groups: dict = {}
+    for name, us in by_kernel.items():
+        g = _group(name)
+        groups[g] = groups.get(g, 0.0) + us / 1e3 / STEPS
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    wall_ms = 1e3 * sum(walls) / len(walls)
+    return {
+        "backend": backend,
+        "wall_ms_per_step": wall_ms,
+        "traced_wall_ms_per_step": 1e3 * traced_wall / STEPS,
+        "device_ms_per_step": device_ms if by_kernel else None,
+        "device_busy_share": device_ms / wall_ms if by_kernel else None,
+        "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+        "top_kernels_ms": [(n[:120], us / 1e3 / STEPS) for n, us in top],
+    }
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--backends", default="exact,log_mult,approx_mult,sc,analog")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_decode: needs a CUDA device")
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build_all()
+    cfg = get_config(args.arch)
+    params = build_model(cfg).init(args.seed, device="cuda")
+    report = {
+        "arch": cfg.name,
+        "device": torch.cuda.get_device_name(0),
+        "slots": SLOTS,
+        "pos": POS,
+        "card": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        ).stdout.strip().splitlines()[0],
+        "backends": [profile_backend(params, cfg, b, args.seed)
+                     for b in args.backends.split(",")],
+    }
+    print(json.dumps(report, indent=1))
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=1)
+    return report
+
+
+if __name__ == "__main__":
+    main()

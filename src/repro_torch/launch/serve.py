@@ -3,13 +3,14 @@ queue (port of the engine branch of ``repro.launch.serve``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
       --requests 8 --slots 4 --prompt-len 64 --gen 32 \\
-      --backends exact,log_mult,approx_mult --fused --out serve.json
+      --backends exact,log_mult,approx_mult,sc,analog --fused --out serve.json
 
 Weights are random, made from ``--seed``.  ``--device`` defaults to
 ``cuda``; ``--device cpu`` runs the plain versions of the kernels.
-``--fused`` decodes through the fused multiplier-error kernels and the
-flash decode attention kernel; ``--no-fused`` (the default) through the
-composed path.  Prefill/decode tok/s are steady-state: the first call of
+``--backends`` takes any of exact, log_mult, approx_mult, sc and analog.
+``--fused`` decodes through the fused emulation kernels and the flash
+decode attention kernel; ``--no-fused`` (the default) through the
+composed path.  SC's generator sequences come from ``--seed``.  Prefill/decode tok/s are steady-state: the first call of
 each shape is timed apart as ``warmup_s``.
 """
 from __future__ import annotations
@@ -37,7 +38,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--gen", type=int, default=32,
                     help="most new tokens; drawn from [gen/4, gen]")
     ap.add_argument("--backends", default="exact",
-                    help="comma list cycled over requests (e.g. exact,log_mult)")
+                    help="comma list cycled over requests, of exact, log_mult, "
+                         "approx_mult, sc, analog")
     ap.add_argument("--fused", action="store_true", default=False,
                     help="decode through the fused kernels and flash decode attention")
     ap.add_argument("--no-fused", dest="fused", action="store_false",

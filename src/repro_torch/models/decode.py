@@ -50,8 +50,10 @@ def serve_step(
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """tokens: [B, 1] int; pos: int (index being written) or [B] int32
     per-row positions.  ``ctx`` (an ``ApproxCtx`` in MODEL mode) serves
-    bit-accurate emulated logits; ``flash`` takes the decode attention
-    kernel.  Returns (logits [B, vocab], cache updated in place)."""
+    bit-accurate emulated logits; its key path serves every layer and the
+    LM head alike (decode keeps one key per step, as in the reference).
+    ``flash`` takes the decode attention kernel.  Returns (logits
+    [B, vocab], cache updated in place)."""
     check_dense(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
     x = params.embed[tokens].to(dtype)  # [B, 1, D]
@@ -107,6 +109,8 @@ def prefill(
     max_seq: Optional[int] = None,
     approx: Optional[ApproxConfig] = None,
     chunk_q: int = 1024,
+    rng=None,
+    draws=None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Bulk prefill: one full-sequence forward over ``tokens [B, L]``.
 
@@ -114,7 +118,8 @@ def prefill(
     rows; the returned logits are taken at ``lengths - 1``.  Returns
     ``(last_logits [B, vocab], cache)``, the cache padded to ``max_seq``
     when given.  ``approx`` with ``mode=MODEL`` prefills with bit-accurate
-    emulation (composed path, as in the reference).
+    emulation (composed path, as in the reference); ``rng`` and ``draws``
+    go to :func:`repro_torch.models.transformer.apply_model`.
     """
     B, T = tokens.shape
     if lengths is None:
@@ -123,7 +128,7 @@ def prefill(
     out = apply_model(
         params, {"tokens": tokens}, cfg,
         approx=approx if approx is not None else ApproxConfig(),
-        chunk_q=chunk_q, return_cache=True,
+        chunk_q=chunk_q, return_cache=True, rng=rng, draws=draws,
     )
     last = out.logits[torch.arange(B, device=tokens.device), lengths - 1]
     cache = out.cache

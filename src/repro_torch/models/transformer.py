@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -17,6 +17,9 @@ from torch import nn
 from repro_torch.configs.base import ApproxConfig, Family, ModelConfig
 from repro_torch.core.approx_linear import ApproxCtx, dense
 from repro_torch.models import layers as L
+
+# the value the reference folds into the forward's key for the LM head
+HEAD_FOLD = 2**20
 
 
 class Block(nn.Module):
@@ -121,6 +124,8 @@ def apply_model(
     approx: ApproxConfig = ApproxConfig(),
     chunk_q: int = 1024,
     return_cache: bool = False,
+    rng: Optional[Tuple[int, ...]] = None,
+    draws: Optional[Callable] = None,
 ) -> ApplyOutput:
     """Full-sequence forward.  batch: {'tokens': [B, T] int}.
 
@@ -128,20 +133,24 @@ def apply_model(
     looks past a slot's position.  With ``return_cache`` the output
     carries the KV cache laid out as
     :func:`repro_torch.models.decode.init_cache` with ``max_seq = T``.
+
+    ``rng`` (a key path, default ``(0,)``) and ``draws`` feed the
+    stochastic backends (see :class:`ApproxCtx`): layer ``l`` folds in
+    ``l`` and the LM head ``2**20``, as the reference does.
     """
     check_dense(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
     x = _embed(params, cfg, batch, dtype)
     B, T, _ = x.shape
     positions = torch.arange(T, dtype=torch.int32, device=x.device).expand(B, T)
-    ctx = ApproxCtx(cfg=approx)
+    ctx = ApproxCtx(cfg=approx, rng=tuple(rng) if rng is not None else (0,), draws=draws)
     ks, vs = [], []
-    for p in params.layers:
-        x, (k, v) = _attn_block_apply(x, p, cfg, ctx, positions, chunk_q)
+    for l, p in enumerate(params.layers):
+        x, (k, v) = _attn_block_apply(x, p, cfg, ctx.for_layer(l), positions, chunk_q)
         if return_cache:
             ks.append(k)
             vs.append(v)
     x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
-    logits = _lm_head(x, params, cfg, ctx)
+    logits = _lm_head(x, params, cfg, ctx.for_layer(HEAD_FOLD))
     cache = {"k": torch.stack(ks), "v": torch.stack(vs)} if return_cache else None
     return ApplyOutput(logits=logits, cache=cache)

@@ -16,8 +16,16 @@ bucketed bulk prefill, per-slot positions, ``fused``, ``collect_logits``,
   so a request's logits do not depend on what shares its batch); exact
   requests share the engine with it.
 * **Fused decode.**  ``fused=True`` decodes emulated lanes through the
-  fused kernels (K2) and every lane's attention through the flash decode
-  kernel (K3); prefill stays on the composed path (K1).
+  fused kernels (K2, K5, K7) and every lane's attention through the flash
+  decode kernel (K3); prefill stays on the composed path (K1, K4, K6).
+* **Random streams.**  Every prefill and every lane decode step takes the
+  next engine tick; its key path ``(seed, tick)`` seeds the SC generator
+  sequences of that call (see
+  :class:`repro_torch.core.approx_linear.ApproxCtx`), in the order the
+  reference's ``_next_rng`` folds ticks into its key.  SC and analog
+  quantise with per-tensor activation scales, so their emulated logits
+  depend on everything that shares the batch (padded prefill positions,
+  idle decode rows), exactly as in the reference.
 
 The reference's fleets, drift, online recalibration, one-compile switch
 and fabric hooks are not ported yet.  PyTorch runs eagerly, so there is
@@ -128,6 +136,18 @@ class _Lane:
         self.slots: List[Optional[_Active]] = [None] * n_slots
         self.tokens = np.zeros((n_slots, 1), np.int64)
         self.pos = np.zeros((n_slots,), np.int32)
+        # steady-state accounting of this lane (first calls excluded)
+        self.prefill_s = self.decode_s = 0.0
+        self.prefill_tokens = self.decode_tokens = self.decode_steps = 0
+
+    @property
+    def name(self) -> str:
+        """The lane's backend, and its site map when it has one."""
+        a = self.approx
+        if not a.active:
+            return Backend.EXACT.value
+        sites = ",".join(f"{p}={b}" for p, b in a.site_backends)
+        return a.backend.value + (f"[{sites}]" if sites else "")
 
     def free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if s is None]
@@ -161,6 +181,7 @@ class Engine:
         stream: Optional[Callable[[int, int, bool], None]] = None,
         fused: bool = False,
         device="cuda",
+        draws: Optional[Callable] = None,
     ):
         self.device = resolve_device(device)
         if params.device.type != self.device.type:
@@ -175,6 +196,9 @@ class Engine:
         self.collect_logits = collect_logits
         self.stream = stream
         self.fused = bool(fused)
+        self.seed = int(seed)
+        self.draws = draws  # None: the port's own SC draws (kernels.ops.sc_draws)
+        self._tick = 0
 
         self.lanes: Dict[ApproxConfig, _Lane] = {}
         self.pending: deque = deque()
@@ -214,6 +238,11 @@ class Engine:
             self._warm.add(key)
             self.warmup_s += dt
         return out, dt, first
+
+    def _next_rng(self):
+        """The key path of the next prefill or lane decode step."""
+        self._tick += 1
+        return (self.seed, self._tick)
 
     def _bucket(self, prompt_len: int) -> int:
         b = self.min_bucket
@@ -260,10 +289,10 @@ class Engine:
         lane.tokens[slot, 0] = 0
         lane.pos[slot] = 0
 
-    def _prefill(self, lane: _Lane, toks, length: int, slot: int):
+    def _prefill(self, lane: _Lane, toks, length: int, slot: int, rng):
         last, sub = D.prefill(
             self.params, toks, self.cfg, lengths=[length], max_seq=self.max_seq,
-            approx=lane.approx,
+            approx=lane.approx, rng=rng, draws=self.draws,
         )
         D.slot_insert(self.cfg, lane.cache, sub, slot)
         return last[0]
@@ -274,10 +303,12 @@ class Engine:
         toks = torch.zeros((1, L), dtype=torch.int64, device=self.device)
         toks[0, :P] = torch.tensor(req.prompt, dtype=torch.int64)
         key = ("prefill", L, lane.approx)
-        last, dt, first = self._call(key, self._prefill, lane, toks, P, slot)
+        last, dt, first = self._call(key, self._prefill, lane, toks, P, slot, self._next_rng())
         if not first:  # steady-state accounting: first calls are excluded
             self.prefill_s += dt  # from both time AND tokens
             self.prefill_tokens += P
+            lane.prefill_s += dt
+            lane.prefill_tokens += P
 
         st = _Active(req=req, prefill_s=0.0 if first else dt)
         logits_row = last.to(torch.float32).cpu().numpy()
@@ -295,8 +326,10 @@ class Engine:
             self._finish(lane, slot)
         return events
 
-    def _decode(self, lane: _Lane):
-        ctx = ApproxCtx(cfg=lane.approx, fused=self.fused) if lane.approx.active else None
+    def _decode(self, lane: _Lane, rng):
+        ctx = None
+        if lane.approx.active:
+            ctx = ApproxCtx(cfg=lane.approx, fused=self.fused, rng=rng, draws=self.draws)
         tokens = torch.from_numpy(lane.tokens).to(self.device)
         pos = torch.from_numpy(lane.pos).to(self.device)
         logits, _ = D.serve_step(
@@ -306,7 +339,7 @@ class Engine:
 
     def _decode_lane(self, lane: _Lane) -> List[Dict[str, Any]]:
         key = ("decode", lane.approx)
-        logits, dt, first = self._call(key, self._decode, lane)
+        logits, dt, first = self._call(key, self._decode, lane, self._next_rng())
         logits_np = logits.to(torch.float32).cpu().numpy()
 
         events: List[Dict[str, Any]] = []
@@ -330,6 +363,9 @@ class Engine:
         if not first:
             self.decode_s += dt
             self.decode_tokens += n_active
+            lane.decode_s += dt
+            lane.decode_tokens += n_active
+            lane.decode_steps += 1
         return events
 
     def step(self) -> List[Dict[str, Any]]:
@@ -363,6 +399,19 @@ class Engine:
             self.step()
         return self.results
 
+    def reset_metrics(self) -> None:
+        """Zero the accounting (times, tokens, utilisation, finished
+        results) and keep everything warm: lanes, caches and the set of
+        first calls already made, so a queue served next is measured in
+        steady state throughout."""
+        self.warmup_s = self.prefill_s = self.decode_s = 0.0
+        self.prefill_tokens = self.decode_tokens = 0
+        self._util = []
+        self.results = {}
+        for lane in self.lanes.values():
+            lane.prefill_s = lane.decode_s = 0.0
+            lane.prefill_tokens = lane.decode_tokens = lane.decode_steps = 0
+
     def metrics(self) -> Dict[str, Any]:
         lat = [t for r in self.results.values() for t in r["latencies_s"]]
         util = float(np.mean([a / c for a, c in self._util])) if self._util else 0.0
@@ -385,4 +434,15 @@ class Engine:
             "p99_ms": float(np.percentile(lat, 99) * 1e3) if lat else 0.0,
             "slot_util": util,
             "device": str(self.device),
+            "per_lane": {
+                lane.name: {
+                    "prefill_tokens": lane.prefill_tokens,
+                    "prefill_tok_s": lane.prefill_tokens / max(lane.prefill_s, 1e-9),
+                    "decode_tokens": lane.decode_tokens,
+                    "decode_steps": lane.decode_steps,
+                    "decode_tok_s": lane.decode_tokens / max(lane.decode_s, 1e-9),
+                    "ms_per_decode_step": 1e3 * lane.decode_s / max(lane.decode_steps, 1),
+                }
+                for lane in self.lanes.values()
+            },
         }

@@ -12,7 +12,18 @@ import pytest
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.analog_matmul import (
+    analog_matmul_cuda,
+    analog_matmul_fused_cuda,
+    analog_matmul_fused_ref,
+)
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
+from repro_torch.kernels.sc_matmul import (
+    sc_matmul_cuda,
+    sc_matmul_fused_cuda,
+    sc_matmul_fused_ref,
+    sc_matmul_words_cuda,
+)
 from repro_torch.kernels.vpu_matmul import (
     elementwise_matmul_cuda,
     elementwise_matmul_fused_cuda,
@@ -99,6 +110,113 @@ def test_k3_allclose(cuda, B, S, G, dh, dtype):
     torch.testing.assert_close(got, flash_decode_ref(q, ck, cv, pos), rtol=0, atol=1e-4)
 
 
+def _epilogue(case, g, cuda, N, dtype):
+    gain = (1 + 0.05 * torch.randn(N, generator=g, device=cuda)).to(dtype)
+    add = (0.02 * torch.randn(N, generator=g, device=cuda)).to(dtype)
+    corr = {"mean_coeffs": torch.tensor([0.01, -0.02, 0.003, -0.0004], device=cuda),
+            "mean_scale": torch.tensor(1.7, device=cuda)}
+    return {
+        "none": {},
+        "gain_add": {"colgain": gain, "coladd": add},
+        "add_only": {"coladd": add},
+        "correction": corr,
+        "all": {"colgain": gain, "coladd": add, **corr},
+    }[case]
+
+
+def _sc_operands(cuda, M, K, N, dtype, bits, seed):
+    """Probability planes as the SC emulator makes them (clipped, with
+    zeros) and the generator draws."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.rand((M, 2 * K), generator=g, device=cuda)
+    x = torch.where(torch.rand(x.shape, generator=g, device=cuda) < 0.3, 0.0, x).to(dtype)
+    wa = torch.rand((K, N), generator=g, device=cuda).to(dtype)
+    wb = torch.rand((K, N), generator=g, device=cuda).to(dtype)
+    ux = torch.rand((1, bits), generator=g, device=cuda)
+    uw = torch.rand((2 * K, bits), generator=g, device=cuda)
+    return g, x, (wa, wb), ux, uw
+
+
+def _analog_operands(cuda, M, K, N, dtype, seed):
+    """Unipolar planes on 8-bit grids, as fake_quant_unipolar makes them."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = lambda t: (torch.round(t * 255) / torch.tensor(255.0, device=cuda)).to(dtype)
+    x = torch.rand((M, 2 * K), generator=g, device=cuda)
+    x = q(torch.where(torch.rand(x.shape, generator=g, device=cuda) < 0.3, 0.0, x))
+    # a small scale keeps partial sums inside the ADC range, as the
+    # emulator's per-tensor scales do
+    wa = q(torch.rand((K, N), generator=g, device=cuda) * 0.1)
+    wb = q(torch.rand((K, N), generator=g, device=cuda) * 0.1)
+    return g, x, (wa, wb)
+
+
+SC_SHAPES = [(4, 2048, 256), (64, 300, 129), (1, 7, 5), (9, 130, 1000)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", SC_SHAPES)
+@pytest.mark.parametrize("bits", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_bitwise(cuda, M, K, N, bits, dtype):
+    """K4 against its plain version, from the planes and on pre-packed
+    words: bitwise (AND, OR and popcount are order-free)."""
+    _, x, w, ux, uw = _sc_operands(cuda, M, K, N, dtype, bits, M + K + N + bits)
+    before = build.LAUNCHES["sc_matmul_packed"]
+    got = sc_matmul_cuda(x, w, bits, ux, uw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["sc_matmul_packed"] == before + 1
+    torch.testing.assert_close(got, ref.sc_matmul_ref(x, w, bits, ux, uw), rtol=0, atol=0)
+    xbits = ref.sc_pack_streams(x, ux)
+    wbits = ref.sc_pack_streams(torch.cat(w), uw[:, None, :])
+    want = ref.sc_matmul_packed_chunked_ref(xbits, wbits) / bits
+    torch.testing.assert_close(sc_matmul_words_cuda(xbits, wbits, bits), want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(4, 2048, 256), (9, 130, 129)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["none", "gain_add", "add_only", "correction", "all"])
+def test_k5_bitwise(cuda, M, K, N, dtype, case):
+    """K5 against its plain version, for every epilogue combination."""
+    g, x, w, ux, uw = _sc_operands(cuda, M, K, N, dtype, 32, 3 * M + N)
+    pre = torch.tensor(0.0371, device=cuda).to(torch.bfloat16)
+    epi = _epilogue(case, g, cuda, N, dtype)
+    got = sc_matmul_fused_cuda(x, w, 32, ux, uw, pre, epi, dtype)
+    want = sc_matmul_fused_ref(x, w, 32, ux, uw, pre, epi, dtype)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(4, 2048, 256), (64, 300, 129), (1, 7, 5), (9, 200, 1000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_bitwise(cuda, M, K, N, dtype):
+    """K6 against its plain version: bitwise (each array's partial sum is
+    exact in float64; the ADC rounds every op).  Ragged arrays when 2K is
+    not a multiple of 128."""
+    _, x, w = _analog_operands(cuda, M, K, N, dtype, 5 * M + K)
+    before = build.LAUNCHES["analog_matmul"]
+    got = analog_matmul_cuda(x, w, 128, 4, 4.0)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["analog_matmul"] == before + 1
+    want = ref.analog_matmul_ref(x, w, 128, 4, 4.0)
+    assert float(want.abs().max()) > 0
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(4, 2048, 256), (9, 130, 129)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["none", "gain_add", "add_only", "correction", "all"])
+def test_k7_bitwise(cuda, M, K, N, dtype, case):
+    """K7 against its plain version, for every epilogue combination."""
+    g, x, w = _analog_operands(cuda, M, K, N, dtype, 11 * M + N)
+    pre = torch.tensor(0.8125, device=cuda).to(torch.bfloat16)
+    epi = _epilogue(case, g, cuda, N, dtype)
+    got = analog_matmul_fused_cuda(x, w, 128, 4, 4.0, pre, epi, dtype)
+    want = analog_matmul_fused_ref(x, w, 128, 4, 4.0, pre, epi, dtype)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 @pytest.mark.gpu
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.ones((4, 8), device=cuda)
@@ -112,3 +230,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # an epilogue vector of the wrong length
         elementwise_matmul_fused_cuda(x, w, "log_mult", torch.ones(4, device=cuda),
                                       {"coladd": torch.ones(3, device=cuda)}, torch.float32)
+    halves = (torch.ones((4, 6), device=cuda), torch.ones((4, 6), device=cuda))
+    u = torch.rand((8, 32), device=cuda)
+    with pytest.raises(ValueError):  # x is not [M, 2K]
+        sc_matmul_cuda(x[:, :7].contiguous(), halves, 32, u[:1], u)
+    with pytest.raises(ValueError):  # stream length not a multiple of 32
+        sc_matmul_cuda(x, halves, 48, torch.rand((1, 48), device=cuda),
+                       torch.rand((8, 48), device=cuda))
+    with pytest.raises(ValueError):  # halves of different dtypes
+        analog_matmul_cuda(x, (halves[0], halves[1].to(torch.bfloat16)), 128, 4, 4.0)

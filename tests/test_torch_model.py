@@ -198,14 +198,19 @@ def test_site_backends_route_per_site():
 
 
 def test_unported_parts_raise():
+    """Archs and training modes the port does not serve yet raise (every
+    backend is ported: sc and analog since the second slice)."""
     from repro_torch.configs import get_config
     from repro_torch.core import registry
 
     with pytest.raises(NotImplementedError):
         get_config("yi-6b")
-    for name in ("sc", "analog"):
+    assert set(registry.names()) == {b.value for b in TBackend}
+    x, w = torch.ones((2, 8)), torch.ones((8, 4))
+    for mode in (TMode.INJECT, TMode.PROXY_ONLY):
+        ctx = TCtx(cfg=TApprox(backend=TBackend.SC, mode=mode))
         with pytest.raises(NotImplementedError):
-            registry.get(name)
+            t_dense(x, w, site="mlp_up", ctx=ctx)
 
 
 def test_serve_cli_smoke(tmp_path):
