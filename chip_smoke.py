@@ -14,9 +14,11 @@ checkout of the repository.  Phases, each synchronised before the next:
    equal (the fused ones also with random epilogue operands); K3 within
    1e-4.  The SC and analog operands come from the emulators' own
    value-domain code on random bf16 activations and weights.  Each kernel
-   is timed with CUDA events beside its plain version, its roofline bound
-   and, for K3, a masked ``scaled_dot_product_attention`` call (timed here
-   only; the port never calls it).
+   is timed with CUDA events over calls of its wrapper (``ms``, which the
+   host time of a call bounds at small shapes) and by a ``torch.profiler``
+   trace of its own kernels (``device_ms``), beside its plain version, its
+   roofline bound and, for K3, a masked ``scaled_dot_product_attention``
+   call (timed here only; the port never calls it).
 3. Serve a seeded queue through the engine on the qwen2.5-3b smoke config
    on the card and on the CPU, backends exact, log_mult, approx_mult, sc
    and analog, with the same SC draws on both (made on the CPU).  Exact
@@ -92,6 +94,24 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int, key: str) -> float:
+    """Device milliseconds per call of the kernels whose names contain
+    ``key`` (a CUDA source's namespace), from a ``torch.profiler`` trace of
+    ``iters`` calls after one warm-up: the kernel's own time, without the
+    host time between calls that ``cuda_ms`` sees at small shapes."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA and key in ev.name)
+    return us / 1e3 / iters
+
+
 def bound(nbytes: float, ops: float, ops_s: float = CUDA_CORE_OPS_S):
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / ops_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -155,12 +175,14 @@ def phase_kernels(dev, cfg):
                 if kname == "elementwise_matmul_fused":
                     run = lambda: elementwise_matmul_fused_cuda(x, w, mul, pre, {}, torch.bfloat16, drop)
                     plain = lambda: elementwise_matmul_fused_ref(x, w, mulf, pre, {}, torch.bfloat16)
-                ms = cuda_ms(run, 3 if M * K * N > 2e9 else 10)
+                iters = 3 if M * K * N > 2e9 else 10
+                ms = cuda_ms(run, iters)
+                dev_ms = device_ms(run, iters, "repro_vpu::")
                 plain_ms = cuda_ms(plain, 1)
                 b_ms, b_by = bound(2 * (M * K + K * N) + out_bytes, 2.0 * M * K * N)
                 row = {"name": f"{kname}[{mul}]", "shape": [M, K, N], "max_abs_err": err,
-                       "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                       "library_ms": None}
+                       "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "library_ms": None}
                 print(f"[kernels] {json.dumps(row)}", flush=True)
                 if (K, N) == rep:
                     summary[row["name"]] = row
@@ -190,6 +212,7 @@ def phase_kernels(dev, cfg):
     b_ms, b_by = bound(nbytes, 4.0 * keys * KV * G * dh)
     row = {"name": "flash_decode", "shape": [B, MAX_SEQ, KV, G, dh], "max_abs_err": err,
            "ms": cuda_ms(lambda: flash_decode(q, ck, cv, pos), 50),
+           "device_ms": device_ms(lambda: flash_decode(q, ck, cv, pos), 50, "flash_decode"),
            "plain_ms": cuda_ms(lambda: flash_decode_ref(q, ck, cv, pos), 50),
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(lib, 50),
            "library_max_abs_err": lib_err}
@@ -296,13 +319,15 @@ def phase_sc_analog(dev, cfg):
                 want = ref.sc_matmul_packed_chunked_ref(xbits, wbits) / sc_p.bits
                 if not (torch.equal(words, want) and torch.equal(words, got)):
                     raise AssertionError("sc_matmul_packed on pre-packed words disagrees")
-            work = M * 2 * K * N
-            ms = cuda_ms(lambda: call(kern, {}), 3 if work > 2e9 else 10)
+            iters = 3 if M * 2 * K * N > 2e9 else 10
+            ms = cuda_ms(lambda: call(kern, {}), iters)
+            dev_ms = device_ms(lambda: call(kern, {}), iters,
+                               "repro_sc::" if kname.startswith("sc") else "repro_analog::")
             plain_ms = cuda_ms(lambda: call(plain, {}), 1)
             b_ms, b_by = _sc_analog_bound(kname, M, K, N, sc_p.bits)
             row = {"name": kname, "shape": [M, K, N], "max_abs_err": err, "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                   "library_ms": None}
+                   "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "library_ms": None}
             print(f"[kernels] {json.dumps(row)}", flush=True)
             if (K, N) == rep:
                 summary[kname] = row
@@ -508,6 +533,7 @@ def main() -> int:
             "shape": row["shape"],
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
+            "device_ms": row["device_ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],

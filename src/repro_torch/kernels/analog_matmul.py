@@ -61,13 +61,23 @@ def _check(x, w: Tuple):
         raise ValueError("x and the halves must be contiguous (row-major)")
 
 
-def _array_scratch(M: int, N: int, K: int, array_size: int, dual: bool, dev):
-    """The per-array partial-sum scratch the kernel's plan asks for (empty
+def _array_scratch(M: int, N: int, K: int, array_size: int, dev):
+    """K6's per-array partial-sum scratch as its plan asks for it (empty
     when the arrays are not split across blocks)."""
-    n = build.lib("analog_matmul").analog_scratch_floats(M, N, K, array_size, int(dual))
+    n = build.lib("analog_matmul").analog_scratch_floats(M, N, K, array_size)
     if n < 0:
         raise ValueError(f"array scratch for {M}x{2 * K}x{N} exceeds 2^31 floats")
     return torch.empty((max(n, 1),), dtype=torch.float32, device=dev)
+
+
+def _fused_scratch(M: int, N: int, K: int, array_size: int, adc_bits: int, dev):
+    """K7's scratch as the kernel lays it out: the ADC code of every array
+    per polarity and output, and the straddling array's first piece when K
+    is not a multiple of ``array_size``."""
+    n = build.lib("analog_matmul").analog_fused_scratch_bytes(M, N, K, array_size, adc_bits)
+    if n < 0:
+        raise ValueError(f"ADC code scratch for {M}x{2 * K}x{N} exceeds 2^31 bytes")
+    return torch.empty((n,), dtype=torch.uint8, device=dev)
 
 
 def analog_matmul_cuda(x, w: Tuple, array_size: int, adc_bits: int, adc_range: float):
@@ -76,7 +86,7 @@ def analog_matmul_cuda(x, w: Tuple, array_size: int, adc_bits: int, adc_range: f
     top, bottom = w
     K, N = top.shape
     M = x.shape[0]
-    q = _array_scratch(M, N, K, array_size, False, x.device)
+    q = _array_scratch(M, N, K, array_size, x.device)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     build.launch(
         "analog_matmul", "analog_matmul", "analog_matmul",
@@ -100,13 +110,12 @@ def analog_matmul_fused_cuda(
     M = x.shape[0]
     dev = x.device
     ops = epilogue_operands(M, N, prescale, epi, out_dtype, dev)
-    q = _array_scratch(M, N, K, array_size, True, dev)
-    sums = torch.empty((2 * M * N,), dtype=torch.float32, device=dev)
+    scratch = _fused_scratch(M, N, K, array_size, adc_bits, dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     build.launch(
         "analog_matmul_fused", "analog_matmul", "analog_matmul_fused",
         _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], x.data_ptr(), wp.data_ptr(),
-        wn.data_ptr(), q.data_ptr(), sums.data_ptr(), *ops.pointers(), out.data_ptr(),
+        wn.data_ptr(), scratch.data_ptr(), *ops.pointers(), out.data_ptr(),
         M, N, K, array_size, adc_bits, float(adc_range),
         torch.cuda.current_stream(dev).cuda_stream,
     )

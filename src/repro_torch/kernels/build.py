@@ -60,14 +60,16 @@ SIGNATURES = {
         ),
     },
     "analog_matmul": {
-        # M, N, K, array_size, dual
-        "analog_scratch_floats": (_I, _I, _I, _I, _I),
+        # M, N, K, array_size
+        "analog_scratch_floats": (_I, _I, _I, _I),
+        # M, N, K, array_size, adc_bits
+        "analog_fused_scratch_bytes": (_I, _I, _I, _I, _I),
         # in_bf16, x, wa, wb, q, out, M, N, K, array_size, adc_bits, adc_range, stream
         "analog_matmul": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
-        # in_bf16, out_bf16, x, wp, wn, q, sums, pre, gain, add, coeffs, P,
+        # in_bf16, out_bf16, x, wp, wn, scratch, pre, gain, add, coeffs, P,
         # mean_scale, eps, out, M, N, K, array_size, adc_bits, adc_range, stream
         "analog_matmul_fused": (
-            _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _P,
+            _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _P,
             _I, _I, _I, _I, _I, _F, _P,
         ),
     },

@@ -203,17 +203,49 @@ def test_k6_bitwise(cuda, M, K, N, dtype):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+# M, K, N, array_size.  K7 streams 64-column tiles and, when K is a
+# multiple of array_size, splits whole arrays across warps; otherwise one
+# array straddles the two halves of the plane and one warp takes all rows.
+K7_SHAPES = [
+    (4, 2048, 256, 128),
+    (9, 130, 129, 128),     # K not a multiple of array_size, N of the tile
+    (4, 2048, 11008, 128),  # gate/up at decode
+    (4, 11008, 2048, 128),  # down at decode
+    (1, 7, 5, 128),         # K < array_size: one array over both halves
+    (4, 200, 1000, 128),
+    (9, 130, 200, 64),
+    (1, 2048, 100, 64),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("M,K,N", [(4, 2048, 256), (9, 130, 129)])
+@pytest.mark.parametrize("M,K,N,A", K7_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ["none", "gain_add", "add_only", "correction", "all"])
-def test_k7_bitwise(cuda, M, K, N, dtype, case):
+def test_k7_bitwise(cuda, M, K, N, A, dtype, case):
     """K7 against its plain version, for every epilogue combination."""
     g, x, w = _analog_operands(cuda, M, K, N, dtype, 11 * M + N)
     pre = torch.tensor(0.8125, device=cuda).to(torch.bfloat16)
     epi = _epilogue(case, g, cuda, N, dtype)
-    got = analog_matmul_fused_cuda(x, w, 128, 4, 4.0, pre, epi, dtype)
-    want = analog_matmul_fused_ref(x, w, 128, 4, 4.0, pre, epi, dtype)
+    before = build.LAUNCHES["analog_matmul_fused"]
+    got = analog_matmul_fused_cuda(x, w, A, 4, 4.0, pre, epi, dtype)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["analog_matmul_fused"] == before + 1
+    want = analog_matmul_fused_ref(x, w, A, 4, 4.0, pre, epi, dtype)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(4, 2048, 256), (9, 130, 129)])
+@pytest.mark.parametrize("adc_bits,adc_range", [(4, 3.0), (8, 4.0), (10, 2.5), (2, 0.5)])
+def test_k7_adc_settings(cuda, M, K, N, adc_bits, adc_range):
+    """K7 against its plain version for other ADC widths and ranges: codes
+    wider than a byte, and ranges that are not a power of two (divided,
+    not multiplied by the reciprocal)."""
+    _, x, w = _analog_operands(cuda, M, K, N, torch.bfloat16, 7 * M + K)
+    pre = torch.tensor(0.8125, device=cuda).to(torch.bfloat16)
+    got = analog_matmul_fused_cuda(x, w, 128, adc_bits, adc_range, pre, {}, torch.bfloat16)
+    want = analog_matmul_fused_ref(x, w, 128, adc_bits, adc_range, pre, {}, torch.bfloat16)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 

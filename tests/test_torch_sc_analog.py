@@ -325,6 +325,100 @@ def test_k7_contract(case):
     np.testing.assert_array_equal(got, apply_epilogue(composed * pre, **epi).numpy())
 
 
+def _emulator_planes(seed, M, K, N):
+    """The analog emulator's operands from random bf16 activations and
+    fan-in-scaled weights: x [M, 2K] and the halves (wp, wn), bf16."""
+    rnd = np.random.default_rng(seed)
+    x = torch.from_numpy(rnd.standard_normal((M, K)).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((rnd.standard_normal((K, N)) * K ** -0.5).astype(np.float32))
+    xp, xn, wp, wn, pre = tbe._array_planes(x, w.to(torch.bfloat16), AnalogParams())
+    return concat_planes(xp, xn), wp, wn, pre
+
+
+@pytest.mark.parametrize("seed,M,K,N", [(0, 4, 256, 48), (1, 9, 130, 33)])
+def test_analog_operands_grid_and_order_free_array_sums(seed, M, K, N):
+    """What K7's exactness rests on: every operand the emulator makes is a
+    bf16 multiple of 2^-15 in [0, 1], and one array's float64 partial sum
+    has the same bits under any order of its ports."""
+    x, wp, wn, _ = _emulator_planes(seed, M, K, N)
+    for t in (x, wp, wn):
+        assert t.dtype == torch.bfloat16
+        v = t.double()
+        assert bool(((v >= 0) & (v <= 1)).all())
+        assert torch.equal(v * 2.0 ** 15, torch.round(v * 2.0 ** 15))
+    rnd = np.random.default_rng(seed + 100)
+    plane = torch.cat([wp, wn]).double()
+    x64 = x.double()
+    for c in range(-(-2 * K // 128)):
+        ports = np.arange(c * 128, min(2 * K, (c + 1) * 128))
+        want = x64[:, ports] @ plane[ports]
+        for _ in range(3):
+            acc = torch.zeros_like(want)
+            for p in rnd.permutation(ports):  # one port at a time
+                acc = acc + x64[:, p, None] * plane[p]
+            assert torch.equal(acc, want)
+
+
+def _k7_schedule(x, wp, wn, array_size, adc_bits, adc_range, prescale, out_dtype, upw):
+    """K7's schedule in plain torch: each warp streams the rows [r0, r1) of
+    its units once, every row r of both halves feeding ports r and r + K of
+    both polarities; a finished array's level goes to its slot, the
+    straddling array (K not a multiple of array_size) adds its two pieces
+    first; the levels add in array order at the end.  The warps run in
+    reverse order, as nothing orders them on the card."""
+    K, N = wp.shape
+    A = array_size
+    C = -(-2 * K // A)
+    x64, p64, n64 = x.double(), wp.double(), wn.double()
+    levels = torch.full((2, C, x.shape[0], N), float("nan"))
+    unit_rows = A if K % A == 0 else K
+    U = K // unit_rows
+    straddle = K % A != 0
+    adc = lambda s: ref.adc_quantize(s.to(torch.float32), adc_bits, adc_range)
+    for u0 in reversed(range(0, U, upw)):
+        r0, r1 = u0 * unit_rows, min(U, u0 + upw) * unit_rows
+        sp_t, sn_t, sp_b, sn_b = (torch.zeros_like(levels[0, 0], dtype=torch.float64)
+                                  for _ in range(4))
+        top_end, bot_end = min(K, (r0 // A + 1) * A), min(K, ((r0 + K) // A + 1) * A - K)
+        for r in range(r0, r1):
+            xt, xb = x64[:, r, None], x64[:, K + r, None]
+            sp_t, sn_t = sp_t + xt * p64[r], sn_t + xt * n64[r]
+            sp_b, sn_b = sp_b + xb * n64[r], sn_b + xb * p64[r]
+            if r + 1 == bot_end:
+                cb = (r + K) // A
+                if straddle and cb == K // A:
+                    carry = (sp_b, sn_b)
+                else:
+                    levels[0, cb], levels[1, cb] = adc(sp_b), adc(sn_b)
+                sp_b, sn_b = torch.zeros_like(sp_b), torch.zeros_like(sn_b)
+                bot_end = min(K, (cb + 2) * A - K)
+            if r + 1 == top_end:
+                ct = r // A
+                if straddle and r + 1 == K:
+                    sp_t, sn_t = sp_t + carry[0], sn_t + carry[1]
+                levels[0, ct], levels[1, ct] = adc(sp_t), adc(sn_t)
+                sp_t, sn_t = torch.zeros_like(sp_t), torch.zeros_like(sn_t)
+                top_end = min(K, (ct + 2) * A)
+    assert not bool(levels.isnan().any())  # every array of both polarities, once
+    sums = torch.zeros((2,) + levels.shape[2:])
+    for c in range(C):
+        sums = sums + levels[:, c]
+    return ((sums[0] - sums[1]) * prescale).to(out_dtype)
+
+
+@pytest.mark.parametrize("K,array_size,upw", [(256, 128, 1), (256, 64, 3), (130, 128, 1),
+                                              (7, 128, 1), (200, 64, 1)])
+def test_k7_schedule_matches_plain_version(K, array_size, upw):
+    """The kernel's schedule (each weight row read once, whole arrays per
+    warp, the straddling array carried, levels added in array order) is
+    bitwise the plain K7, for K a multiple of array_size and not."""
+    x, wp, wn, pre = _emulator_planes(K, 4, K, 40)
+    got = _k7_schedule(x, wp, wn, array_size, 4, 4.0, pre, torch.bfloat16, upw)
+    want = analog_matmul_fused_ref(x, (wp, wn), array_size, 4, 4.0, pre, {}, torch.bfloat16)
+    assert float(want.float().abs().max()) > 0
+    assert torch.equal(got, want)
+
+
 # ---------------------------------------------------------------------------
 # Value-domain code
 # ---------------------------------------------------------------------------
