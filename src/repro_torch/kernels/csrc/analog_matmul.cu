@@ -27,9 +27,8 @@
 // operands (tests only) take the same code; their products need more bits
 // than float64 has, so there the argument is that of any two float64 sums
 // rounded to float32.  The ADC rounds every op as written (__fdiv_rn,
-// __fmul_rn, rintf, fminf; K7 multiplies by 1 / adc_range where that is a
-// power of two, the same correctly rounded quotient): no multiply-add is
-// contracted, so a level decision cannot move by an ulp.  No TF32, no bf16 tensor cores and no
+// __fmul_rn, rintf, fminf): no multiply-add is contracted, so a level
+// decision cannot move by an ulp.  No TF32, no bf16 tensor cores and no
 // float32 sum inside an array: a partial sum that crosses an ADC level
 // would change the result.  The quantised values of the arrays are not
 // order-free (ADC levels are 4 fl(k/15)), so they are added in array
@@ -58,9 +57,16 @@
 //     units per warp are chosen to fill whole waves of the card.  When both
 //     arrays of a step end, the whole warp stores their rounded ADC levels
 //     as byte codes (wider above 8 ADC bits), [2][C][M][N].  The finishing
-//     pass stages a block's codes in shared memory, adds the levels in
-//     array order, subtracts, rescales, casts and runs the correction
-//     (chip terms go through repro_epi::finish_rows): two launches a call.
+//     pass adds each output's levels in array order, subtracts, rescales,
+//     casts and runs the epilogue: two launches a call.  Without chip
+//     terms (the serving path) it is finish_sums, which stages a block's
+//     codes in shared memory by 16-byte loads and reads levels from a
+//     table.  With repro_epi::finish_elementwise instead (one thread per
+//     output, reading its 2C codes one by one) the whole call took 0.130
+//     against 0.057 ms at 4 x 11008 x 2048, where 172 arrays meet only
+//     8192 outputs, and 0.063 against 0.051 ms at 4 x 2048 x 11008 (H100
+//     80GB HBM3, 700 W, tools/time_k7.py).  Chip terms take
+//     repro_epi::finish_rows, which needs each row's maximum first.
 //   * When K is not a multiple of array_size, one array straddles the
 //     halves (its ports are the top's last rows and the bottom's first);
 //     then one warp streams all K rows of its tile, parks that array's
@@ -78,7 +84,6 @@
 #include <stdint.h>
 
 #include <algorithm>
-#include <cmath>
 
 #include "epilogue.cuh"
 
@@ -90,15 +95,12 @@ namespace {
 struct Adc {
   float range;   // adc_range
   float levels;  // 2^adc_bits - 1
-  float inv;     // 1 / adc_range where that is a power of two (K7), else 0
 };
 
 // The rounded ADC level of a partial sum, clamped to the range first.
 __device__ __forceinline__ float adc_level(float psum, Adc a) {
   const float c = fminf(fmaxf(psum, 0.0f), a.range);
-  // c * inv is the correctly rounded c / range when range is a power of two
-  const float u = a.inv != 0.0f ? __fmul_rn(c, a.inv) : __fdiv_rn(c, a.range);
-  return rintf(__fmul_rn(u, a.levels));  // half to even, as jnp.round
+  return rintf(__fmul_rn(__fdiv_rn(c, a.range), a.levels));  // half to even, as jnp.round
 }
 
 // The value of level t.
@@ -712,7 +714,8 @@ __global__ void __launch_bounds__(128)
 }
 
 // The same value for the finishing pass with chip terms
-// (repro_epi::finish_rows, which needs each row's maximum first).
+// (repro_epi::finish_rows, which needs each row's maximum first): each
+// polarity's ADC levels added in array order, then (sum_p - sum_n) * pre[m].
 template <typename T, typename Code>
 struct ArraySums {
   const Code* q;  // [2][C][M][N] ADC codes
@@ -763,7 +766,7 @@ void fused(int in_bf16, int out_bf16, const void* x, const void* wp, const void*
 }
 
 Adc make_adc(int adc_bits, float adc_range) {
-  return Adc{adc_range, (float)((1 << adc_bits) - 1), 0.0f};
+  return Adc{adc_range, (float)((1 << adc_bits) - 1)};
 }
 
 }  // namespace
@@ -811,10 +814,7 @@ extern "C" int analog_matmul_fused(int in_bf16, int out_bf16, const void* x, con
                                    float mean_scale, float eps, void* out, int M, int N, int K,
                                    int array_size, int adc_bits, float adc_range, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Adc adc = make_adc(adc_bits, adc_range);
-  int e = 0;
-  if (std::isfinite(adc_range) && std::frexp(adc_range, &e) == 0.5f && e > -125 && e < 126)
-    adc.inv = 1.0f / adc_range;  // exact
+  const Adc adc = make_adc(adc_bits, adc_range);
   unsigned char* s = static_cast<unsigned char*>(scratch);
   if (adc_bits <= 8)
     fused<uint8_t>(in_bf16, out_bf16, x, wp, wn, s, pre, gain, add, coeffs, P, mean_scale, eps,

@@ -240,8 +240,7 @@ def test_k7_bitwise(cuda, M, K, N, A, dtype, case):
 @pytest.mark.parametrize("adc_bits,adc_range", [(4, 3.0), (8, 4.0), (10, 2.5), (2, 0.5)])
 def test_k7_adc_settings(cuda, M, K, N, adc_bits, adc_range):
     """K7 against its plain version for other ADC widths and ranges: codes
-    wider than a byte, and ranges that are not a power of two (divided,
-    not multiplied by the reciprocal)."""
+    wider than a byte, and ranges that are and are not a power of two."""
     _, x, w = _analog_operands(cuda, M, K, N, torch.bfloat16, 7 * M + K)
     pre = torch.tensor(0.8125, device=cuda).to(torch.bfloat16)
     got = analog_matmul_fused_cuda(x, w, 128, adc_bits, adc_range, pre, {}, torch.bfloat16)
