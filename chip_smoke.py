@@ -13,7 +13,10 @@ checkout of the repository.  Phases, each synchronised before the next:
    both multipliers, K4 and K5 (SC), K6 and K7 (analog) must be bitwise
    equal (the fused ones also with random epilogue operands); K3 within
    1e-4.  The SC and analog operands come from the emulators' own
-   value-domain code on random bf16 activations and weights.  Each kernel
+   value-domain code on random bf16 activations and weights.  K5 takes
+   the threshold tables of its draws built beforehand, as on the decode
+   path, and the tables kernel is held bitwise against its plain version
+   at each K5 site.  Each kernel
    is timed with CUDA events over calls of its wrapper (``ms``, which the
    host time of a call bounds at small shapes) and by a ``torch.profiler``
    trace of its own kernels (``device_ms``), beside its plain version, its
@@ -68,6 +71,9 @@ KERNEL_SOURCES = {
     "sc_matmul_packed_fused": ("sc_matmul.cu", "sc_matmul.py:235"),
     "analog_matmul": ("analog_matmul.cu", "analog_matmul.py:87"),
     "analog_matmul_fused": ("analog_matmul.cu", "analog_matmul.py:233"),
+    # the threshold tables in front of K4/K5: the stream generation of the
+    # reference's ops.sc_matmul_fused (jnp, not a Pallas kernel)
+    "sc_tables": ("sc_matmul.cu", "ops.py:177"),
 }
 # the kernels the serving path launches (the packed-words entry of K4 is a check)
 PATH_KERNELS = tuple(KERNEL_SOURCES)
@@ -94,22 +100,37 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+TRACE_TRIES = 3  # profiler traces of one timing before it counts as failed
+
+
 def device_ms(fn, iters: int, key: str) -> float:
     """Device milliseconds per call of the kernels whose names contain
     ``key`` (a CUDA source's namespace), from a ``torch.profiler`` trace of
     ``iters`` calls after one warm-up: the kernel's own time, without the
-    host time between calls that ``cuda_ms`` sees at small shapes."""
+    host time between calls that ``cuda_ms`` sees at small shapes.
+
+    Every call launches at least one such kernel, so a trace that holds
+    fewer than ``iters`` of them lost events: it is taken again, and after
+    ``TRACE_TRIES`` short traces this raises (it never reports 0)."""
     from torch.autograd import DeviceType
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-             if ev.device_type == DeviceType.CUDA and key in ev.name)
-    return us / 1e3 / iters
+    seen = []
+    for _ in range(TRACE_TRIES):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA and key in ev.name]
+        if len(evs) >= iters:
+            if seen:
+                print(f"[trace] {key}: {seen} events in earlier traces of {iters} calls, "
+                      f"{len(evs)} in this one", flush=True)
+            return sum(ev.time_range.elapsed_us() for ev in evs) / 1e3 / iters
+        seen.append(len(evs))
+    raise RuntimeError(f"profiler traces of {iters} calls held {seen} kernels named "
+                       f"{key!r}: fewer than the calls, so the device time is unknown")
 
 
 def bound(nbytes: float, ops: float, ops_s: float = CUDA_CORE_OPS_S):
@@ -231,11 +252,19 @@ def _site_shapes(cfg):
 def _sc_analog_bound(kname, M, K, N, bits):
     """Bytes each input read once and each output written once; the
     operations each kernel's function needs (see PERF.md)."""
+    from repro_torch.kernels.sc_matmul import table_words
+
     P, W = 2 * K, bits // 32
     planes = 2 * K * N * 2                      # the two bf16 weight halves
+    draws = 4 * bits + 4 * P * bits             # ux and uw, float32
+    if kname == "sc_tables":
+        # rank of each of a row's 64 thresholds among the 64, and its 65
+        # masks of 64 bits each: comparisons per row
+        return bound(draws + 4 * table_words(K, bits), (K + 1) * W * (64 * 64 + 65 * 64))
     if kname.startswith("sc"):
+        # K4 and K5 need the draws, not the port's tables of them (row sc_tables)
         fused = kname.endswith("fused")
-        nbytes = 2 * M * P + planes + 4 * bits + 4 * P * bits + (2 if fused else 4) * M * N
+        nbytes = 2 * M * P + planes + draws + (2 if fused else 4) * M * N
         pol = 2 if fused else 1
         # AND + OR per (row, port, column, word); one op per stream word built
         ops = pol * (2 * M * P * N * W + P * N * W) + M * P * W
@@ -259,11 +288,31 @@ def phase_sc_analog(dev, cfg):
         analog_matmul_fused_ref,
     )
     from repro_torch.kernels.sc_matmul import (
+        SCDraws,
         sc_matmul_cuda,
         sc_matmul_fused_cuda,
         sc_matmul_fused_ref,
         sc_matmul_words_cuda,
+        sc_tables_cuda,
+        sc_tables_ref,
     )
+
+    def _tables_row(K, N, ux, uw, bits):
+        """The tables kernel against its plain version (bitwise) for the
+        draws of a K5 site, timed."""
+        got, want = sc_tables_cuda(ux, uw), sc_tables_ref(ux, uw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"sc_tables K={K} bits={bits}: not bitwise equal to its plain "
+                                 f"version ({int((got != want).sum())} words differ)")
+        b_ms, b_by = _sc_analog_bound("sc_tables", DECODE_M, K, N, bits)
+        row = {"name": "sc_tables", "shape": [K, bits], "max_abs_err": 0.0,
+               "ms": cuda_ms(lambda: sc_tables_cuda(ux, uw), 10),
+               "device_ms": device_ms(lambda: sc_tables_cuda(ux, uw), 10, "repro_sc::"),
+               "plain_ms": cuda_ms(lambda: sc_tables_ref(ux, uw), 1), "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": None}
+        print(f"[kernels] {json.dumps(row)}", flush=True)
+        return row
 
     sc_p, an_p = SCParams(), AnalogParams()
     adc = (an_p.array_size, an_p.adc_bits, an_p.adc_range)
@@ -280,9 +329,15 @@ def phase_sc_analog(dev, cfg):
             if kname.startswith("sc"):
                 xp, xn, wp, wn, pre = _stream_planes(x, w, sc_p)
                 ux, uw = ops.sc_draws((1, K, N, M), 2 * K, sc_p.bits, dev)
-                args = (sc_p.bits, ux, uw)
-                kern, plain = ((sc_matmul_fused_cuda, sc_matmul_fused_ref) if fused
-                               else (sc_matmul_cuda, ref.sc_matmul_ref))
+                if fused:  # the decode path: tables built once per step
+                    draws = SCDraws(ux, uw)
+                    draws.tables  # built now, as once per decode step
+                    args = (sc_p.bits, draws)
+                    kern, plain = sc_matmul_fused_cuda, sc_matmul_fused_ref
+                else:  # a plain pair: the tables built in the call
+                    args = (sc_p.bits, (ux, uw))
+                    kern = sc_matmul_cuda
+                    plain = lambda x_, w_, n_bits, d: ref.sc_matmul_ref(x_, w_, n_bits, *d)
             else:
                 xp, xn, wp, wn, pre = _array_planes(x, w, an_p)
                 args = adc
@@ -298,8 +353,12 @@ def phase_sc_analog(dev, cfg):
                     "mean_coeffs": torch.tensor([0.01, -0.02, 0.003, -0.0004], device=dev),
                     "mean_scale": torch.tensor(1.7, device=dev),
                 }]
-            call = lambda f, e: (f(xcat, halves, *args, pre, e, bf) if fused
-                                 else f(xcat, halves, *args))
+
+            def call(f, e):
+                if not fused:
+                    return f(xcat, halves, *args)
+                return f(xcat, halves, *args, pre, e, bf)
+
             err = 0.0
             for epi in epis:
                 got, want = call(kern, epi), call(plain, epi)
@@ -319,6 +378,10 @@ def phase_sc_analog(dev, cfg):
                 want = ref.sc_matmul_packed_chunked_ref(xbits, wbits) / sc_p.bits
                 if not (torch.equal(words, want) and torch.equal(words, got)):
                     raise AssertionError("sc_matmul_packed on pre-packed words disagrees")
+            if fused and kname.startswith("sc"):
+                row = _tables_row(K, N, ux, uw, sc_p.bits)
+                if (K, N) == rep:
+                    summary["sc_tables"] = row
             iters = 3 if M * 2 * K * N > 2e9 else 10
             ms = cuda_ms(lambda: call(kern, {}), iters)
             dev_ms = device_ms(lambda: call(kern, {}), iters,

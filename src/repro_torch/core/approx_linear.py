@@ -15,11 +15,12 @@ from __future__ import annotations
 import dataclasses
 import functools
 import zlib
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 from repro_torch.configs.base import ApproxConfig, Backend, TrainMode
 from repro_torch.core import injection, registry
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.sc_matmul import SCDraws
 
 
 @dataclasses.dataclass
@@ -37,19 +38,35 @@ class ApproxCtx:
     (:func:`repro_torch.kernels.ops.sc_draws`); a test may pass the JAX
     reference's draws for the same path, so both packages see identical
     streams.
+
+    The ctx keeps the draws it has made, by path, as
+    :class:`repro_torch.kernels.sc_matmul.SCDraws` (which carry their
+    threshold tables on the card): a decode step runs every layer under
+    one ctx and one path per site, so each site draws and builds its
+    tables once per step, not once per layer.  They live as long as the
+    ctx: one decode step.  A full-sequence forward gives each layer a ctx
+    of its own (:meth:`for_layer`, with an empty memo), so it keeps no
+    more than one layer's draws alive.
     """
 
     cfg: ApproxConfig
     fused: bool = False
     rng: Tuple[int, ...] = (0,)
     draws: Optional[Callable] = None
+    _memo: Dict = dataclasses.field(default_factory=dict, init=False, repr=False, compare=False)
 
     def site_rng(self, site: str) -> Callable:
         """This site's draw source, ``(n_ports, n_bits, device) -> (ux, uw)``:
         the ctx's path with ``crc32(site) & 0x7FFFFFFF`` folded in, as the
         reference's ``ApproxCtx.site_rng``."""
         path = tuple(self.rng) + (zlib.crc32(site.encode()) & 0x7FFFFFFF,)
-        return functools.partial(self.draws or kops.sc_draws, path)
+        return functools.partial(self._site_draws, path)
+
+    def _site_draws(self, path, n_ports: int, n_bits: int, device) -> SCDraws:
+        key = (path, n_ports, n_bits, str(device))
+        if key not in self._memo:
+            self._memo[key] = SCDraws(*(self.draws or kops.sc_draws)(path, n_ports, n_bits, device))
+        return self._memo[key]
 
     def for_layer(self, idx: int) -> "ApproxCtx":
         """The ctx of layer ``idx`` of a full-sequence forward: the layer

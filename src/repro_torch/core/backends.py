@@ -70,9 +70,9 @@ def _emulate_sc(x, w, p: SCParams, rng):
     one accumulation per polarity over 2K ports, both against the same
     generator sequences."""
     xp, xn, wp, wn, rescale = _stream_planes(x, w, p)
-    ux, uw = rng(2 * xp.shape[-1], p.bits, x.device)
+    draws = rng(2 * xp.shape[-1], p.bits, x.device)
     r = split_unipolar_contract(
-        (xp, xn), (wp, wn), lambda a, b: kops.sc_matmul(a, b, p.bits, ux, uw)
+        (xp, xn), (wp, wn), lambda a, b: kops.sc_matmul(a, b, p.bits, draws)
     )
     return (r * rescale).to(x.dtype)
 
@@ -165,8 +165,8 @@ def _fused_emulate_log_mult(x, w, p: LogMultParams, rng, epi):
 
 def _fused_emulate_sc(x, w, p: SCParams, rng, epi):
     xp, xn, wp, wn, rescale = _stream_planes(x, w, p)
-    ux, uw = rng(2 * xp.shape[-1], p.bits, x.device)
-    y = kops.sc_matmul_fused(concat_planes(xp, xn), (wp, wn), p.bits, ux, uw, rescale, epi, x.dtype)
+    draws = rng(2 * xp.shape[-1], p.bits, x.device)
+    y = kops.sc_matmul_fused(concat_planes(xp, xn), (wp, wn), p.bits, draws, rescale, epi, x.dtype)
     return y.reshape(x.shape[:-1] + (w.shape[-1],))
 
 

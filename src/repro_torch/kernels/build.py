@@ -48,14 +48,16 @@ SIGNATURES = {
         "flash_decode": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     },
     "sc_matmul": {
-        # in_bf16, x, wa, wb, ux, uw, tab, xbits, acc, out, M, N, K, bits, stream
-        "sc_matmul": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # ux, uw, tab, K, bits, stream
+        "sc_tables": (_P, _P, _P, _I, _I, _P),
+        # in_bf16, x, wa, wb, tab, xbits, acc, out, M, N, K, bits, stream
+        "sc_matmul": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         # xbits, wbits, acc, out, M, N, ports, bits, stream
         "sc_matmul_words": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-        # in_bf16, out_bf16, x, wp, wn, ux, uw, tab, xbits, acc_p, acc_n,
-        # pre, gain, add, coeffs, P, mean_scale, eps, out, M, N, K, bits, stream
+        # in_bf16, out_bf16, x, wp, wn, tab, acc_p, acc_n, pre, gain, add,
+        # coeffs, P, mean_scale, eps, out, M, N, K, bits, stream
         "sc_matmul_fused": (
-            _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _P,
+            _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _P,
             _I, _I, _I, _I, _P,
         ),
     },
@@ -84,6 +86,8 @@ LAUNCHES: Dict[str, int] = {
     "flash_decode": 0,
     "sc_matmul_packed": 0,
     "sc_matmul_packed_fused": 0,
+    # the threshold tables of a set of SC draws, in front of K4 and K5
+    "sc_tables": 0,
     "analog_matmul": 0,
     "analog_matmul_fused": 0,
     # K4's contraction on pre-packed words: a check entry, off the serving path

@@ -65,7 +65,7 @@
 //     output, reading its 2C codes one by one) the whole call took 0.130
 //     against 0.057 ms at 4 x 11008 x 2048, where 172 arrays meet only
 //     8192 outputs, and 0.063 against 0.051 ms at 4 x 2048 x 11008 (H100
-//     80GB HBM3, 700 W, tools/time_k7.py).  Chip terms take
+//     80GB HBM3, 700 W, tools/time_kernel.py --kernel k7).  Chip terms take
 //     repro_epi::finish_rows, which needs each row's maximum first.
 //   * When K is not a multiple of array_size, one array straddles the
 //     halves (its ports are the top's last rows and the bottom's first);

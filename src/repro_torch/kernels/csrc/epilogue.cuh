@@ -12,6 +12,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstddef>
+#include <type_traits>
+#include <utility>
+
 namespace repro_epi {
 
 // Round a float to the storage type T and back (identity for float).
@@ -95,7 +99,20 @@ inline int grid_for(size_t n, int threads) {
 
 // The finishing passes of a fused kernel.  V is a functor whose
 // operator()(i, m) gives output i = m * N + n before the epilogue: the
-// contraction's value times the row's prescale, rounded to T.
+// contraction's value times the row's prescale, rounded to T.  A functor
+// with release(i) has it called after its last read of output i (K5 clears
+// its accumulators there).
+
+template <typename V, typename = void>
+struct has_release : std::false_type {};
+template <typename V>
+struct has_release<V, std::void_t<decltype(std::declval<const V&>().release(std::size_t{}))>>
+    : std::true_type {};
+
+template <typename V>
+__device__ __forceinline__ void release(const V& val, size_t i) {
+  if constexpr (has_release<V>::value) val.release(i);
+}
 
 // Epilogue without chip terms: elementwise.
 template <typename T, typename V>
@@ -105,6 +122,7 @@ __global__ void finish_elementwise(V val, const float* __restrict__ coeffs, int 
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
     float y = val(i, (int)(i / N));
+    release(val, i);
     if (P > 0) y = correct<T>(y, coeffs, P, mean_scale);
     store<T>(out, i, y);
   }
@@ -134,6 +152,7 @@ __global__ void finish_rows(V val, const T* __restrict__ gain, const T* __restri
   const bool has_gain = gain != nullptr;
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
     float y = val(row + n, m);
+    release(val, row + n);
     y = chip<T>(y, has_gain, has_gain ? load<T>(gain, n) : 0.0f, load<T>(add, n), scale);
     if (P > 0) y = correct<T>(y, coeffs, P, mean_scale);
     store<T>(out, row + n, y);

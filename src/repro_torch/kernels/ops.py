@@ -56,12 +56,14 @@ def sc_draws(key: Tuple[int, ...], n_ports: int, n_bits: int, device):
     return ux, uw
 
 
-def sc_matmul(xp, w, n_bits: int, ux, uw):
+def sc_matmul(xp, w, n_bits: int, draws):
     """Probability-domain [M, 2K] @ [2K, N] through SC streams; ``w`` is the
-    plane's ``(top, bottom)`` halves, ``ux``/``uw`` the generator draws."""
-    if _on_cuda(xp, *w, ux, uw):
-        return _sc.sc_matmul_cuda(xp, w, n_bits, ux, uw)
-    return kref.sc_matmul_ref(xp, w, n_bits, ux, uw)
+    plane's ``(top, bottom)`` halves, ``draws`` the generator draws ``(ux,
+    uw)`` (on the card, an :class:`repro_torch.kernels.sc_matmul.SCDraws`
+    keeps their threshold tables for the next call)."""
+    if _on_cuda(xp, *w, *draws):
+        return _sc.sc_matmul_cuda(xp, w, n_bits, draws)
+    return kref.sc_matmul_ref(xp, w, n_bits, *draws)
 
 
 def analog_matmul(x, w, array_size: int, adc_bits: int, adc_range: float):
@@ -109,12 +111,13 @@ def log_matmul_fused(x, w, prescale, epi: dict, out_dtype):
     )
 
 
-def sc_matmul_fused(xcat, w, n_bits: int, ux, uw, prescale, epi: dict, out_dtype):
+def sc_matmul_fused(xcat, w, n_bits: int, draws, prescale, epi: dict, out_dtype):
     """Dual-plane SC stream contraction with the fused epilogue; ``w`` is
-    ``(wp, wn)``, the halves of w_pos = [wp; wn] and w_neg = [wn; wp]."""
-    if _on_cuda(xcat, *w, ux, uw):
-        return _sc.sc_matmul_fused_cuda(xcat, w, n_bits, ux, uw, prescale, epi, out_dtype)
-    return _sc.sc_matmul_fused_ref(xcat, w, n_bits, ux, uw, prescale, epi, out_dtype)
+    ``(wp, wn)``, the halves of w_pos = [wp; wn] and w_neg = [wn; wp];
+    ``draws`` as for :func:`sc_matmul`."""
+    if _on_cuda(xcat, *w, *draws):
+        return _sc.sc_matmul_fused_cuda(xcat, w, n_bits, draws, prescale, epi, out_dtype)
+    return _sc.sc_matmul_fused_ref(xcat, w, n_bits, draws, prescale, epi, out_dtype)
 
 
 def analog_matmul_fused(

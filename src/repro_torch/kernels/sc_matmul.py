@@ -5,14 +5,20 @@ versions (port of ``repro.kernels.sc_matmul``).
 ``csrc/sc_matmul.cu``.  They take the activation probabilities ``x``
 [M, 2K], the weight probability plane as its two [K, N] halves
 ``(top, bottom)`` (read in place: the reference's ``concatenate``s are
-never built), and the generator draws ``ux`` [1, bits] (shared by every
-activation port) and ``uw`` [2K, bits] (one sequence per weight row).
-The kernels compare and pack the streams themselves.
-``sc_matmul_words_cuda`` is K4's contraction on pre-packed words, the
-reference kernel's own interface, for checking the contraction alone.
+never built), and the generator draws ``(ux, uw)``: ``ux`` [1, bits]
+(shared by every activation port) and ``uw`` [2K, bits] (one sequence
+per weight row).  The kernels compare and pack the streams themselves,
+against threshold tables of the draws that :func:`sc_tables_cuda` builds
+on the card.  The wrappers take the draws as :class:`SCDraws`, which
+builds their tables at first use and keeps them, so every call that
+shares the draws shares one build; a plain ``(ux, uw)`` pair is wrapped
+for the call.  ``sc_matmul_words_cuda`` is K4's contraction on
+pre-packed words, the reference kernel's own interface, for checking the
+contraction alone.
 
 The plain versions are :func:`repro_torch.kernels.ref.sc_matmul_ref`
-(K4) and :func:`sc_matmul_fused_ref` below (K5).
+(K4), :func:`sc_matmul_fused_ref` (K5) and :func:`sc_tables_ref` (the
+tables, bit for bit as the kernel lays them out).
 """
 from __future__ import annotations
 
@@ -27,14 +33,106 @@ from repro_torch.kernels.vpu_matmul import epilogue_operands
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_BITS = 256  # the kernel's table of one activation sequence holds 8 words
-ROW = 65        # words of one (port, word) table row: 32 thresholds, 33 masks
+KEYS = 64       # thresholds of one table row: word w of sequences k and k + K
+BUCKETS = 256   # value buckets of one table row
+MASKS_AT = KEYS                        # word of a row's first mask pair
+BUCKETS_AT = MASKS_AT + 2 * (KEYS + 1)  # word of its first 16-bit bucket entry
+ROW = BUCKETS_AT + BUCKETS // 2 + 2    # words of one row, 2 of them padding
 
 
-def sc_matmul_fused_ref(x, w: Tuple, n_bits: int, ux, uw, prescale, epi: Dict, out_dtype):
+def table_words(K: int, n_bits: int) -> int:
+    """int32 words of the tables of draws for 2K weight ports: rows (k, w)
+    for k <= K (row K: the activation sequence), laid out [W][K + 1][ROW]."""
+    return (K + 1) * (n_bits // 32) * ROW
+
+
+class SCDraws(tuple):
+    """``(ux, uw)``, one projection's generator draws, with their threshold
+    tables on the card (:attr:`tables`), built at first use and kept."""
+
+    def __new__(cls, ux, uw):
+        self = super().__new__(cls, (ux, uw))
+        self._tables = None
+        return self
+
+    @classmethod
+    def of(cls, draws) -> "SCDraws":
+        """``draws`` itself, or a plain ``(ux, uw)`` pair wrapped."""
+        return draws if isinstance(draws, cls) else cls(*draws)
+
+    @property
+    def tables(self) -> torch.Tensor:
+        """The tables of the draws (:func:`sc_tables_cuda`)."""
+        if self._tables is None:
+            self._tables = sc_tables_cuda(*self)
+        return self._tables
+
+
+def bucket_of(v):
+    """The value bucket of probabilities or thresholds, as the kernels take
+    it: floor(256 v) clamped to [0, 255], NaN in bucket 0 (the table puts
+    NaN thresholds in bucket 255)."""
+    b = torch.floor(v.to(torch.float32) * 256.0)
+    b = torch.where(torch.isnan(b), 0.0, b)
+    return b.clamp(0, BUCKETS - 1).to(torch.int64)
+
+
+def _order_key(u):
+    """int64 keys of float32 thresholds in a total order that agrees with
+    ``<``: -0.0 ties with +0.0, NaN sorts last (as the kernel's order_key)."""
+    u = torch.where(u == 0, torch.zeros_like(u), u)
+    b = u.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    key = torch.where(b >= 2**31, b ^ 0xFFFFFFFF, b | 2**31)
+    return torch.where(torch.isnan(u), torch.full_like(key, 0xFFFFFFFF), key)
+
+
+def sc_tables_ref(ux, uw):
+    """The kernel's threshold tables of the draws ``ux`` [1, bits] and ``uw``
+    [2K, bits], in plain PyTorch: int32 [(K + 1) * W * ROW], bit for bit.
+
+    Row (k, w) merges threshold word w of sequences k (top) and k + K
+    (bottom); row (K, w) holds ux's word twice.  Its first 64 words are the
+    64 thresholds sorted by (value, top before bottom, index), as float32
+    bits; then 65 mask pairs (top word, bottom word): pair c holds the
+    stream bits of the c smallest; then 256 16-bit bucket entries, entry
+    b = start | end << 8 where [start, end) are the sorted positions of
+    the thresholds in bucket b (:func:`bucket_of`); then 2 words of
+    zeros."""
+    n_bits = uw.shape[1]
+    K, W = uw.shape[0] // 2, n_bits // 32
+    ux = ux.reshape(1, n_bits).to(torch.float32)
+    uw = uw.to(torch.float32)
+    top = torch.cat([uw[:K], ux]).reshape(K + 1, W, 32).transpose(0, 1)  # [W, K + 1, 32]
+    bottom = torch.cat([uw[K:], ux]).reshape(K + 1, W, 32).transpose(0, 1)
+    u = torch.cat([top, bottom], dim=-1)                                  # [W, K + 1, 64]
+    order = torch.argsort(_order_key(u), dim=-1, stable=True)
+    keys = torch.gather(u, -1, order)
+    # bucket b holds sorted positions [#{buckets < b}, #{buckets < b + 1})
+    kb = torch.where(torch.isnan(keys), BUCKETS - 1, bucket_of(keys))
+    below = (kb[..., None, :] < torch.arange(BUCKETS + 1, device=u.device)[:, None]).sum(-1)
+    entries = below[..., :-1] | below[..., 1:] << 8                      # [W, K + 1, 256]
+    entries = (entries[..., 0::2] | entries[..., 1::2] << 16).to(torch.int64)
+    entries = torch.where(entries >= 2**31, entries - 2**32, entries).to(torch.int32)
+    keys = keys.contiguous().view(torch.int32)
+    # each stream bit belongs to one threshold, so an OR of the bits of the
+    # c smallest is their sum
+    one = torch.ones((), dtype=torch.int64, device=u.device)
+    bit = one << (order % 32)
+    bits = [torch.where(order // 32 == h, bit, 0) for h in (0, 1)]
+    zero = torch.zeros(order.shape[:-1] + (1,), dtype=torch.int64, device=u.device)
+    masks = torch.stack([torch.cat([zero, b.cumsum(-1)], dim=-1) for b in bits], dim=-1)
+    masks = torch.where(masks >= 2**31, masks - 2**32, masks).to(torch.int32)
+    pad = torch.zeros(keys.shape[:-1] + (ROW - BUCKETS_AT - BUCKETS // 2,), dtype=torch.int32,
+                      device=u.device)
+    return torch.cat([keys, masks.flatten(-2), entries, pad], dim=-1).reshape(-1)
+
+
+def sc_matmul_fused_ref(x, w: Tuple, n_bits: int, draws, prescale, epi: Dict, out_dtype):
     """K5's plain version: both polarities, w_pos = [wp; wn] and w_neg =
     [wn; wp], ``r_p - r_n`` times the prescale, cast to ``out_dtype``,
-    then the epilogue."""
+    then the epilogue; ``draws`` is ``(ux, uw)``."""
     wp, wn = w
+    ux, uw = draws
     r = sc_matmul_ref(x, (wp, wn), n_bits, ux, uw) - sc_matmul_ref(x, (wn, wp), n_bits, ux, uw)
     return apply_epilogue((r * prescale).to(out_dtype), **epi)
 
@@ -67,29 +165,49 @@ def _check(x, w: Tuple, n_bits: int, ux, uw):
         raise ValueError("x, the halves and the draws must be contiguous (row-major)")
 
 
-def _scratch(x, K: int, N: int, n_bits: int, planes: int):
-    """Table rows, activation words and word accumulators for one call."""
-    M, W, dev = x.shape[0], n_bits // 32, x.device
-    tab = torch.empty(((2 * K + 1) * W * ROW,), dtype=torch.int32, device=dev)
-    xbits = torch.empty((M * 2 * K * W,), dtype=torch.int32, device=dev)
-    accs = [torch.empty((M * N * W,), dtype=torch.int32, device=dev) for _ in range(planes)]
-    return tab, xbits, accs
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
-def sc_matmul_cuda(x, w: Tuple, n_bits: int, ux, uw):
+def sc_tables_cuda(ux, uw):
+    """The threshold tables of the draws ``ux`` [1, bits] and ``uw`` [2K,
+    bits] on the card (one launch): int32 [(K + 1) * W * ROW], the layout
+    of :func:`sc_tables_ref`."""
+    if ux.device.type != "cuda" or uw.device != ux.device:
+        raise ValueError(f"CUDA kernel needs the draws on one CUDA device; got "
+                         f"{ux.device}, {uw.device}")
+    n_bits = uw.shape[-1] if uw.dim() == 2 else -1
+    if n_bits % 32 or not 0 < n_bits <= MAX_BITS or uw.shape[0] % 2 or ux.numel() != n_bits:
+        raise ValueError(f"need ux [1, bits] and uw [2K, bits], bits a multiple of 32 up to "
+                         f"{MAX_BITS}; got {tuple(ux.shape)}, {tuple(uw.shape)}")
+    if ux.dtype != torch.float32 or uw.dtype != torch.float32:
+        raise ValueError("the generator draws must be float32")
+    if not (ux.is_contiguous() and uw.is_contiguous()):
+        raise ValueError("the draws must be contiguous")
+    K = uw.shape[0] // 2
+    tab = torch.empty((table_words(K, n_bits),), dtype=torch.int32, device=ux.device)
+    build.launch("sc_tables", "sc_matmul", "sc_tables", ux.data_ptr(), uw.data_ptr(),
+                 tab.data_ptr(), K, n_bits, _stream(ux.device))
+    return tab
+
+
+def sc_matmul_cuda(x, w: Tuple, n_bits: int, draws):
     """K4: x [M, 2K] against the plane [top; bottom] -> [M, N] float32
-    stream value (popcount / n_bits)."""
-    _check(x, w, n_bits, ux, uw)
+    stream value (popcount / n_bits), against the streams of ``draws``
+    (:class:`SCDraws` or a plain ``(ux, uw)`` pair)."""
+    draws = SCDraws.of(draws)
+    _check(x, w, n_bits, *draws)
     top, bottom = w
     K, N = top.shape
-    M = x.shape[0]
-    tab, xbits, (acc,) = _scratch(x, K, N, n_bits, 1)
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    M, W, dev = x.shape[0], n_bits // 32, x.device
+    tab = draws.tables
+    xbits = torch.empty((M * 2 * K * W,), dtype=torch.int32, device=dev)
+    acc = torch.empty((M * N * W,), dtype=torch.int32, device=dev)
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
     build.launch(
         "sc_matmul_packed", "sc_matmul", "sc_matmul",
-        _DTYPE_CODE[x.dtype], x.data_ptr(), top.data_ptr(), bottom.data_ptr(),
-        ux.data_ptr(), uw.data_ptr(), tab.data_ptr(), xbits.data_ptr(), acc.data_ptr(),
-        out.data_ptr(), M, N, K, n_bits, torch.cuda.current_stream(x.device).cuda_stream,
+        _DTYPE_CODE[x.dtype], x.data_ptr(), top.data_ptr(), bottom.data_ptr(), tab.data_ptr(),
+        xbits.data_ptr(), acc.data_ptr(), out.data_ptr(), M, N, K, n_bits, _stream(dev),
     )
     return out
 
@@ -118,22 +236,46 @@ def sc_matmul_words_cuda(xbits, wbits, n_bits: int):
     return out
 
 
-def sc_matmul_fused_cuda(x, w: Tuple, n_bits: int, ux, uw, prescale, epi: Dict, out_dtype):
+# (device, stream) -> K5's word accumulators, int32, all zero between
+# calls: the contraction ORs into them and the finishing pass clears what it
+# has read, so a call launches no memset.  Zero-filled when first made or
+# grown.
+_CLEAR: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _clear_words(dev, stream: int, n: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    buf = _CLEAR.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _CLEAR[key] = torch.zeros((n,), dtype=torch.int32, device=dev)
+    return buf
+
+
+def sc_matmul_fused_cuda(x, w: Tuple, n_bits: int, draws, prescale, epi: Dict, out_dtype):
     """K5: both polarities of the plane halves ``w = (wp, wn)`` against the
-    same streams, ``r_p - r_n``, the prescale, the cast to ``out_dtype``
-    and the epilogue ``epi`` in one call."""
-    _check(x, w, n_bits, ux, uw)
+    streams of ``draws`` (:class:`SCDraws` or a plain ``(ux, uw)`` pair),
+    ``r_p - r_n``, the prescale, the cast to ``out_dtype`` and the epilogue
+    ``epi``: two launches, and one more where the draws' tables are not
+    built yet."""
+    draws = SCDraws.of(draws)
+    _check(x, w, n_bits, *draws)
     wp, wn = w
     K, N = wp.shape
-    M = x.shape[0]
-    ops = epilogue_operands(M, N, prescale, epi, out_dtype, x.device)
-    tab, xbits, (acc_p, acc_n) = _scratch(x, K, N, n_bits, 2)
-    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    build.launch(
-        "sc_matmul_packed_fused", "sc_matmul", "sc_matmul_fused",
-        _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], x.data_ptr(), wp.data_ptr(),
-        wn.data_ptr(), ux.data_ptr(), uw.data_ptr(), tab.data_ptr(), xbits.data_ptr(),
-        acc_p.data_ptr(), acc_n.data_ptr(), *ops.pointers(), out.data_ptr(), M, N, K, n_bits,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    M, dev = x.shape[0], x.device
+    ops = epilogue_operands(M, N, prescale, epi, out_dtype, dev)
+    tab = draws.tables
+    stream = _stream(dev)
+    words = M * N * (n_bits // 32)
+    acc = _clear_words(dev, stream, 2 * words)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    try:
+        build.launch(
+            "sc_matmul_packed_fused", "sc_matmul", "sc_matmul_fused",
+            _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], x.data_ptr(), wp.data_ptr(),
+            wn.data_ptr(), tab.data_ptr(), acc.data_ptr(), acc[words:].data_ptr(),
+            *ops.pointers(), out.data_ptr(), M, N, K, n_bits, stream,
+        )
+    except RuntimeError:
+        _CLEAR.pop((dev.index, stream), None)  # the finishing pass may not have cleared them
+        raise
     return out

@@ -10,8 +10,8 @@ it times ``STEPS`` steps on the host clock (each ending in
 ``torch.cuda.synchronize``), then traces as many with ``torch.profiler``
 and sums the device time of every kernel.  It prints, per backend: wall
 ms per step, device ms per step, the device's busy share (device time /
-wall time), and the device time by group (the card's name and power
-limit head the report): the port's hand-written
+wall time), and the device time and launches by group (the card's name
+and power limit head the report): the port's hand-written
 kernels (K1-K7 and their finishing passes), PyTorch's elementwise and
 reduction kernels (the plain-torch value-domain code: scales, planes,
 quantisation), GEMMs, and the rest.
@@ -34,12 +34,14 @@ WARMUP, STEPS = 2, 3
 GROUPS = (  # (group, substrings of a kernel's name), first match wins
     # the CUDA sources name their namespaces; a finishing pass carries its
     # kernel's functor type in its name
+    ("SC tables sc_matmul.cu", ("build_tables",)),  # apart from the K4/K5 row below
     ("K4/K5 sc_matmul.cu", ("repro_sc::",)),
     ("K6/K7 analog_matmul.cu", ("repro_analog::",)),
     ("K1/K2 vpu_matmul.cu", ("repro_vpu::",)),
     ("K3 flash_decode.cu", ("flash_decode",)),
     ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "gemv", "nvjet")),
     ("PyTorch reductions", ("reduce",)),
+    ("PyTorch random", ("distribution",)),  # torch.rand of the SC draws
     ("PyTorch elementwise", ("elementwise", "unrolled", "vectorized")),
     ("memset and copies", ("memset", "memcpy")),
 )
@@ -96,14 +98,18 @@ def profile_backend(params, cfg, backend: str, seed: int) -> dict:
         torch.cuda.synchronize()
         traced_wall = time.perf_counter() - t0
     by_kernel: dict = {}
+    launches: dict = {}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
             by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+            launches[ev.name] = launches.get(ev.name, 0) + 1
     device_ms = sum(by_kernel.values()) / 1e3 / STEPS
     groups: dict = {}
+    group_launches: dict = {}
     for name, us in by_kernel.items():
         g = _group(name)
         groups[g] = groups.get(g, 0.0) + us / 1e3 / STEPS
+        group_launches[g] = group_launches.get(g, 0) + launches[name] / STEPS
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     wall_ms = 1e3 * sum(walls) / len(walls)
     return {
@@ -113,7 +119,9 @@ def profile_backend(params, cfg, backend: str, seed: int) -> dict:
         "device_ms_per_step": device_ms if by_kernel else None,
         "device_busy_share": device_ms / wall_ms if by_kernel else None,
         "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-        "top_kernels_ms": [(n[:120], us / 1e3 / STEPS) for n, us in top],
+        "launches_per_step_by_group": group_launches,
+        # (name, device ms per step, launches per step)
+        "top_kernels": [(n[:120], us / 1e3 / STEPS, launches[n] / STEPS) for n, us in top],
     }
 
 

@@ -19,10 +19,12 @@ from repro_torch.kernels.analog_matmul import (
 )
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
 from repro_torch.kernels.sc_matmul import (
+    SCDraws,
     sc_matmul_cuda,
     sc_matmul_fused_cuda,
     sc_matmul_fused_ref,
     sc_matmul_words_cuda,
+    sc_tables_ref,
 )
 from repro_torch.kernels.vpu_matmul import (
     elementwise_matmul_cuda,
@@ -158,14 +160,23 @@ SC_SHAPES = [(4, 2048, 256), (64, 300, 129), (1, 7, 5), (9, 130, 1000)]
 @pytest.mark.parametrize("bits", [32, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k4_bitwise(cuda, M, K, N, bits, dtype):
-    """K4 against its plain version, from the planes and on pre-packed
-    words: bitwise (AND, OR and popcount are order-free)."""
+    """K4 against its plain version, from the planes (tables built for the
+    call, and built once for two calls, as a prefill projection does for
+    its two polarities) and on pre-packed words: bitwise (AND, OR and
+    popcount are order-free)."""
     _, x, w, ux, uw = _sc_operands(cuda, M, K, N, dtype, bits, M + K + N + bits)
-    before = build.LAUNCHES["sc_matmul_packed"]
-    got = sc_matmul_cuda(x, w, bits, ux, uw)
+    want = ref.sc_matmul_ref(x, w, bits, ux, uw)
+    before = dict(build.LAUNCHES)
+    got = sc_matmul_cuda(x, w, bits, (ux, uw))
+    draws = SCDraws(ux, uw)
+    again = sc_matmul_cuda(x, w, bits, draws)
+    twice = sc_matmul_cuda(x, w, bits, draws)
     torch.cuda.synchronize()
-    assert build.LAUNCHES["sc_matmul_packed"] == before + 1
-    torch.testing.assert_close(got, ref.sc_matmul_ref(x, w, bits, ux, uw), rtol=0, atol=0)
+    assert build.LAUNCHES["sc_matmul_packed"] == before["sc_matmul_packed"] + 3
+    assert build.LAUNCHES["sc_tables"] == before["sc_tables"] + 2
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(again, want, rtol=0, atol=0)
+    torch.testing.assert_close(twice, want, rtol=0, atol=0)
     xbits = ref.sc_pack_streams(x, ux)
     wbits = ref.sc_pack_streams(torch.cat(w), uw[:, None, :])
     want = ref.sc_matmul_packed_chunked_ref(xbits, wbits) / bits
@@ -181,9 +192,115 @@ def test_k5_bitwise(cuda, M, K, N, dtype, case):
     g, x, w, ux, uw = _sc_operands(cuda, M, K, N, dtype, 32, 3 * M + N)
     pre = torch.tensor(0.0371, device=cuda).to(torch.bfloat16)
     epi = _epilogue(case, g, cuda, N, dtype)
-    got = sc_matmul_fused_cuda(x, w, 32, ux, uw, pre, epi, dtype)
-    want = sc_matmul_fused_ref(x, w, 32, ux, uw, pre, epi, dtype)
+    got = sc_matmul_fused_cuda(x, w, 32, (ux, uw), pre, epi, dtype)
+    want = sc_matmul_fused_ref(x, w, 32, (ux, uw), pre, epi, dtype)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _sc_serving_operands(cuda, M, K, N, seed):
+    """K5's operands as the SC emulator makes them at a serving site: bf16
+    activations and fan-in-scaled weights through the value-domain code,
+    and the port's draws."""
+    from repro_torch.configs.base import SCParams
+    from repro_torch.core.backends import _stream_planes
+    from repro_torch.kernels.ops import sc_draws
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    w = (torch.randn((K, N), generator=g, device=cuda) * K ** -0.5).to(torch.bfloat16)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    xp, xn, wp, wn, pre = _stream_planes(x, w, SCParams())
+    ux, uw = sc_draws((seed, K, N), 2 * K, 32, cuda)
+    return g, torch.cat([xp, xn], dim=-1).contiguous(), (wp, wn), ux, uw, pre
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048),
+                                 (2048, 151936)])
+def test_k5_serving_shapes(cuda, K, N):
+    """K5 at the five qwen2.5-3b sites, M = 4, with tables built once and
+    reused: bitwise to its plain version, with the empty epilogue and
+    with chip and correction terms."""
+    g, x, w, ux, uw, pre = _sc_serving_operands(cuda, 4, K, N, 11)
+    draws = SCDraws(ux, uw)
+    for epi in ({}, _epilogue("all", g, cuda, N, torch.bfloat16)):
+        got = sc_matmul_fused_cuda(x, w, 32, draws, pre, epi, torch.bfloat16)
+        want = sc_matmul_fused_ref(x, w, 32, draws, pre, epi, torch.bfloat16)
+        assert float(want.float().abs().max()) > 0
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(4, 300, 1000), (4, 2048, 1003), (4, 130, 264),
+                                   (4, 3, 520), (1, 7, 5), (9, 64, 2100), (1, 256, 8)])
+@pytest.mark.parametrize("bits", [32, 64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_ragged_shapes_and_stream_lengths(cuda, M, K, N, bits, dtype):
+    """K5 bitwise off the serving shapes: N not a multiple of the column
+    tile (nor of the 16-byte copy), K not a multiple of the 4-row step and
+    below one step, M = 1 and M = 9 (three activation tiles), streams of
+    32, 64 and 256 bits, float32 and bf16 planes, chip terms."""
+    g, x, w, ux, uw = _sc_operands(cuda, M, K, N, dtype, bits, M * K + N + bits)
+    pre = torch.rand((M, 1), generator=g, device=cuda)
+    epi = _epilogue("all", g, cuda, N, dtype)
+    got = sc_matmul_fused_cuda(x, w, bits, (ux, uw), pre, epi, dtype)
+    want = sc_matmul_fused_ref(x, w, bits, (ux, uw), pre, epi, dtype)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["none", "gain_add", "add_only", "correction", "all"])
+def test_k5_edge_probabilities_and_tied_draws(cuda, dtype, case):
+    """Probabilities 0, -0.0, 1, NaN and values exactly equal to a
+    threshold, against draws with repeated thresholds (a grid of
+    sixteenths, 0 and 1 included): bitwise, for every epilogue case; the
+    tables equal their plain version bit for bit."""
+    M, K, N, bits = 4, 256, 512, 64
+    g, x, (wa, wb), ux, uw = _sc_operands(cuda, M, K, N, dtype, bits, 77)
+    uw = torch.where(torch.rand(uw.shape, generator=g, device=cuda) < 0.5,
+                     torch.round(uw * 16) / 16, uw.to(dtype).float())
+    ux = torch.round(ux * 16) / 16
+    for t in (x, wa, wb):
+        pick = torch.rand(t.shape, generator=g, device=cuda)
+        t.masked_fill_(pick < 0.05, 0.0)
+        t.masked_fill_((pick >= 0.05) & (pick < 0.1), -0.0)
+        t.masked_fill_((pick >= 0.1) & (pick < 0.15), 1.0)
+        t.masked_fill_((pick >= 0.15) & (pick < 0.16), float("nan"))
+    wa[:, :64] = uw[:K, :64].to(dtype)  # equal to the thresholds of their port
+    wb[:, 64:128] = uw[K:, :64].to(dtype)
+    x[:, :64] = ux[0, :64].to(dtype)
+    draws = SCDraws(ux, uw)
+    assert torch.equal(draws.tables, sc_tables_ref(ux, uw))
+    pre = torch.tensor(0.0371, device=cuda)
+    epi = _epilogue(case, g, cuda, N, dtype)
+    got = sc_matmul_fused_cuda(x, (wa, wb), bits, draws, pre, epi, dtype)
+    want = sc_matmul_fused_ref(x, (wa, wb), bits, draws, pre, epi, dtype)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_k5_reused_tables_and_two_launches_a_call(cuda):
+    """Tables built once and reused give the bits of tables built fresh,
+    call after call (the accumulators come back clear), and a call with
+    the tables launches two kernels of sc_matmul.cu and no memset."""
+    from torch.autograd import DeviceType
+
+    g, x, w, ux, uw, pre = _sc_serving_operands(cuda, 4, 2048, 11008, 12)
+    draws = SCDraws(ux, uw)
+    fresh = sc_matmul_fused_cuda(x, w, 32, (ux, uw), pre, {}, torch.bfloat16)
+    for _ in range(3):
+        again = sc_matmul_fused_cuda(x, w, 32, draws, pre, {}, torch.bfloat16)
+        assert torch.equal(again, fresh)
+    torch.cuda.synchronize()
+    before = dict(build.LAUNCHES)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        sc_matmul_fused_cuda(x, w, 32, draws, pre, {}, torch.bfloat16)
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    assert build.LAUNCHES["sc_matmul_packed_fused"] == before["sc_matmul_packed_fused"] + 1
+    assert build.LAUNCHES["sc_tables"] == before["sc_tables"]
+    assert len([n for n in names if "repro_sc::" in n]) == 2, names
+    assert not any("memset" in n.lower() for n in names), names
 
 
 @pytest.mark.gpu
@@ -264,9 +381,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     halves = (torch.ones((4, 6), device=cuda), torch.ones((4, 6), device=cuda))
     u = torch.rand((8, 32), device=cuda)
     with pytest.raises(ValueError):  # x is not [M, 2K]
-        sc_matmul_cuda(x[:, :7].contiguous(), halves, 32, u[:1], u)
+        sc_matmul_cuda(x[:, :7].contiguous(), halves, 32, (u[:1], u))
     with pytest.raises(ValueError):  # stream length not a multiple of 32
-        sc_matmul_cuda(x, halves, 48, torch.rand((1, 48), device=cuda),
-                       torch.rand((8, 48), device=cuda))
+        sc_matmul_cuda(x, halves, 48, (torch.rand((1, 48), device=cuda),
+                                       torch.rand((8, 48), device=cuda)))
+    with pytest.raises(ValueError):  # draws that are not float32
+        sc_matmul_fused_cuda(x, halves, 32, (u[:1], u.double()), 1.0, {}, torch.float32)
     with pytest.raises(ValueError):  # halves of different dtypes
         analog_matmul_cuda(x, (halves[0], halves[1].to(torch.bfloat16)), 128, 4, 4.0)

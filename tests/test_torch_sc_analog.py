@@ -74,6 +74,7 @@ from repro_torch.core.approx_linear import ApproxCtx as TCtx
 from repro_torch.core.approx_linear import dense as t_dense
 from repro_torch.core.registry import concat_planes
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import sc_matmul as _sc
 from repro_torch.kernels.analog_matmul import analog_matmul_fused_ref
 from repro_torch.models import build_model as t_build
 from repro_torch.runtime.engine import Engine as TEngine
@@ -197,7 +198,7 @@ def test_k4_bitwise(M, K, N, L):
     wbits = jref.sc_pack_streams(jnp.concatenate([wa, wb]), jnp.asarray(uw)[:, None, :])
     want = np.asarray(j_sc(xbits, wbits, L, interpret=True, block_m=8, block_n=16, block_k=16))
     t = torch.from_numpy
-    got = ops.sc_matmul(t(x), (t(wa), t(wb)), L, t(ux), t(uw)).numpy()
+    got = ops.sc_matmul(t(x), (t(wa), t(wb)), L, (t(ux), t(uw))).numpy()
     np.testing.assert_array_equal(got, want)
 
     counts = np.asarray(jref.sc_matmul_packed_ref(xbits, wbits))
@@ -229,7 +230,8 @@ def test_k5_bitwise(out_dtype, case):
     jepi = {k: jnp.asarray(v) for k, v in epi.items()}
     t = torch.from_numpy
     tepi = {k: t(np.asarray(v)) for k, v in epi.items()}
-    got = _f32(ops.sc_matmul_fused(t(x), (t(wa), t(wb)), SC_BITS, t(ux), t(uw), tpre, tepi, tdt))
+    got = _f32(ops.sc_matmul_fused(t(x), (t(wa), t(wb)), SC_BITS, (t(ux), t(uw)), tpre, tepi,
+                                   tdt))
 
     xbits = jref.sc_pack_streams(jnp.asarray(x), jnp.asarray(ux))
     u = jnp.asarray(uw)[:, None, :]
@@ -733,3 +735,201 @@ def test_engine_own_draws_are_reproducible(models):
         assert runs[0][rid]["tokens"] == runs[1][rid]["tokens"]
         for a, b in zip(runs[0][rid]["logits"], runs[1][rid]["logits"]):
             np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# K5's threshold tables and word build, rendered in plain torch; the draw
+# memo of ApproxCtx
+# ---------------------------------------------------------------------------
+
+
+def _stream_words(rows, p):
+    """sc_matmul.cu's ``stream_words`` in plain torch: for table rows
+    [..., ROW] (int32) and probabilities ``p`` [...], p's bucket entry
+    [start, end), c = start plus the bucket's thresholds below p (a prefix
+    of them), then the mask pair at c: (word against the row's top
+    sequence, word against its bottom one), int32 each."""
+    keys = rows[..., :_sc.KEYS].contiguous().view(torch.float32)
+    p = p.to(torch.float32)[..., None]
+    half = _sc.bucket_of(p)
+    words = torch.gather(rows[..., _sc.BUCKETS_AT:_sc.BUCKETS_AT + _sc.BUCKETS // 2], -1,
+                         half // 2).to(torch.int64) & 0xFFFFFFFF
+    e = (words >> (16 * (half % 2))) & 0xFFFF
+    c, end = e & 0xFF, e >> 8
+    while True:
+        more = (c < end) & (torch.gather(keys, -1, c.clamp(max=_sc.KEYS - 1)) < p)
+        if not bool(more.any()):
+            break
+        c = c + more.to(torch.int64)
+    masks = rows[..., _sc.MASKS_AT:_sc.BUCKETS_AT]
+    return torch.gather(masks, -1, 2 * c)[..., 0], torch.gather(masks, -1, 2 * c + 1)[..., 0]
+
+
+def _tied_draws(rnd, K, n_bits):
+    """Draws with ties: half the thresholds on a grid of sixteenths (0 and
+    1 included), the rest bf16 values, so probabilities can equal them."""
+    u = rnd.random((2 * K + 1, n_bits)).astype(np.float32)
+    u = np.where(rnd.random(u.shape) < 0.5, np.round(u * 16) / 16,
+                 np.asarray(torch.from_numpy(u).to(torch.bfloat16).float())).astype(np.float32)
+    u[0, :4] = [0.0, -0.0, 1.0, 0.5]
+    return torch.from_numpy(u[-1:]), torch.from_numpy(u[:-1])
+
+
+def test_sc_table_buckets():
+    """Each row's thresholds are sorted (NaN last, -0.0 tied with 0.0), and
+    bucket b's entry spans exactly the sorted positions of the thresholds
+    in [b / 256, (b + 1) / 256): buckets tile the 64 positions in order."""
+    ux, uw = _tied_draws(np.random.default_rng(1), 3, 64)
+    uw[1, :3] = torch.tensor([float("nan"), float("inf"), -1.0])
+    rows = _sc.sc_tables_ref(ux, uw).reshape(-1, _sc.ROW)
+    keys = rows[:, :_sc.KEYS].contiguous().view(torch.float32)
+    entries = rows[:, _sc.BUCKETS_AT:_sc.BUCKETS_AT + _sc.BUCKETS // 2].contiguous()
+    entries = entries.view(torch.int16).to(torch.int64) & 0xFFFF
+    start, end = entries & 0xFF, entries >> 8
+    assert torch.equal(start[:, 1:], end[:, :-1])
+    assert bool((start[:, 0] == 0).all()) and bool((end[:, -1] == _sc.KEYS).all())
+    for row, s, e in zip(keys, start, end):
+        finite = row[~torch.isnan(row)]
+        assert bool((finite[1:] >= finite[:-1]).all())
+        for b in torch.nonzero(e > s).flatten().tolist():
+            inside = row[s[b]:e[b]]
+            assert bool((torch.where(torch.isnan(inside), _sc.BUCKETS - 1,
+                                     _sc.bucket_of(inside)) == b).all())
+
+
+@pytest.mark.parametrize("n_bits", [32, 64])
+def test_sc_table_words_are_p_greater_than_u_for_every_bf16(n_bits):
+    """The new table format and word build, as the kernels run them: for
+    every bfloat16 bit pattern (all of [0, 1], -0.0, NaN, infinities and
+    negatives), against draws with ties, each row's two words are bit for
+    bit the packed p > u_j of ports k and k + K, and row K's of ux."""
+    K = 3
+    ux, uw = _tied_draws(np.random.default_rng(0), K, n_bits)
+    p = torch.arange(-2**15, 2**15, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    p = p.to(torch.float32)
+    tab = _sc.sc_tables_ref(ux, uw).reshape(n_bits // 32, K + 1, _sc.ROW)
+    for k in range(K + 1):
+        top, bottom = (ux, ux) if k == K else (uw[k:k + 1], uw[K + k:K + k + 1])
+        want_t, want_b = ref.sc_pack_streams(p, top), ref.sc_pack_streams(p, bottom)
+        for w in range(n_bits // 32):
+            got_t, got_b = _stream_words(tab[w, k].expand(p.shape[0], -1), p)
+            assert torch.equal(got_t, want_t[:, w]), (k, w)
+            assert torch.equal(got_b, want_b[:, w]), (k, w)
+
+
+def _k5_render(x, wp, wn, ux, uw, n_bits, prescale, out_dtype, splits):
+    """K5's contraction as fused_contract runs it: the tables, activation
+    words from the activation row, two searches per weight pair giving its
+    4 words, K split into ``splits`` ranges ORed together, then
+    PlaneDifference's arithmetic (no epilogue)."""
+    K, N = wp.shape
+    W = n_bits // 32
+    tab = _sc.sc_tables_ref(ux, uw).reshape(W, K + 1, _sc.ROW)
+    cuts = np.linspace(0, K, splits + 1).astype(int)
+    counts = []
+    for w in range(W):
+        xw = _stream_words(tab[w, K].expand(*x.shape, -1), x)[0]  # [M, 2K]
+        acc_p = torch.zeros((x.shape[0], N), dtype=torch.int32)
+        acc_n = torch.zeros_like(acc_p)
+        for lo, hi in zip(cuts[:-1], cuts[1:]):
+            part_p, part_n = torch.zeros_like(acc_p), torch.zeros_like(acc_n)
+            for k in range(lo, hi):
+                at, ab = _stream_words(tab[w, k].expand(N, -1), wp[k])
+                bt, bb = _stream_words(tab[w, k].expand(N, -1), wn[k])
+                xt, xb = xw[:, k, None], xw[:, k + K, None]
+                part_p |= (xt & at) | (xb & bb)
+                part_n |= (xt & bt) | (xb & ab)
+            acc_p |= part_p
+            acc_n |= part_n
+        counts.append((ref._popcount(acc_p), ref._popcount(acc_n)))
+    cp = sum(c[0] for c in counts).to(torch.float32)
+    cn = sum(c[1] for c in counts).to(torch.float32)
+    r = ref._div(cp, n_bits) - ref._div(cn, n_bits)
+    return (r * prescale).to(out_dtype)
+
+
+@pytest.mark.parametrize("n_bits,splits,dtype", [(32, 1, torch.bfloat16), (32, 3, torch.bfloat16),
+                                                 (64, 2, torch.float32)])
+def test_k5_schedule_matches_plain_version(n_bits, splits, dtype):
+    """The kernel's arithmetic (merged tables, two searches per weight
+    pair for its four words, split K ORed) is bitwise the plain K5, on
+    the SC emulator's planes with edge probabilities: 0, -0.0, 1 and
+    values equal to a threshold."""
+    rnd = np.random.default_rng(n_bits + splits)
+    M, K, N = 5, 9, 24
+    x = torch.from_numpy(rnd.standard_normal((M, K)).astype(np.float32)).to(dtype)
+    w = torch.from_numpy((rnd.standard_normal((K, N)) * K ** -0.5).astype(np.float32)).to(dtype)
+    xp, xn, wp, wn, pre = tbe._stream_planes(x, w, SCParams(bits=n_bits))
+    ux, uw = _tied_draws(rnd, K, n_bits)
+    wp, wn, xcat = wp.clone(), wn.clone(), concat_planes(xp, xn).clone()
+    wp[0, :6] = torch.tensor([0.0, -0.0, 1.0, 0.5, 0.25, 0.0625])
+    wn[1, :3] = uw[1, :3].to(dtype)  # equal to thresholds of port 1
+    wn[2, :3] = uw[K + 2, :3].to(dtype)  # and of port K + 2
+    xcat[0, :3] = torch.tensor([-0.0, 1.0, 0.0])
+    xcat[1, :2] = ux[0, :2].to(dtype)
+    got = _k5_render(xcat, wp, wn, ux, uw, n_bits, pre, dtype, splits)
+    want = _sc.sc_matmul_fused_ref(xcat, (wp, wn), n_bits, (ux, uw), pre, {}, dtype)
+    assert float(want.float().abs().max()) > 0
+    assert torch.equal(got, want)
+
+
+def _sc_decode(tm, tp, cache, nxt, lengths, draws):
+    ctx = TCtx(cfg=TApprox(backend=TBackend.SC, mode=TMode.MODEL), fused=True, rng=(4, 1),
+               draws=draws)
+    cache = {k: v.clone() for k, v in cache.items()}
+    return tm.serve_step(tp, cache, nxt, lengths, ctx=ctx, flash=True)[0]
+
+
+def test_sc_draw_memo_one_draw_per_path_per_decode_step(models, monkeypatch):
+    """A decode step with SC on every site draws once per distinct key
+    path (7 sites and the LM head: 8), not once per layer, and its logits
+    are bitwise those of a step that draws anew at every layer; the JAX
+    draws fed in."""
+    from repro_torch.core.approx_linear import ApproxCtx
+    from repro_torch.kernels.sc_matmul import SCDraws
+
+    _, _, tm, tp = models
+    rnd = np.random.default_rng(5)
+    toks = torch.from_numpy(rnd.integers(0, tm.cfg.vocab_size, (2, 6))).long()
+    lengths = torch.tensor([6, 4])
+    _, cache = tm.prefill(tp, toks, lengths=lengths, max_seq=12,
+                          approx=TApprox(backend=TBackend.SC, mode=TMode.MODEL), rng=(4,),
+                          draws=jax_draws)
+    nxt = torch.from_numpy(rnd.integers(0, tm.cfg.vocab_size, (2, 1))).long()
+    paths = []
+
+    def counted(path, n_ports, n_bits, device):
+        paths.append(path)
+        return jax_draws(path, n_ports, n_bits, device)
+
+    memo = _sc_decode(tm, tp, cache, nxt, lengths, counted)
+    assert len(paths) == len(set(paths)) == 8
+    paths.clear()
+    # the ctx without its memo: every projection draws anew
+    monkeypatch.setattr(ApproxCtx, "_site_draws",
+                        lambda self, path, *shape: SCDraws(*self.draws(path, *shape)))
+    fresh = _sc_decode(tm, tp, cache, nxt, lengths, counted)
+    assert len(paths) == 7 * tm.cfg.n_layers + 1 and len(set(paths)) == 8
+    assert torch.equal(memo, fresh)
+
+
+def test_sc_draw_memo_prefill_keeps_at_most_its_bound(models):
+    """In prefill every layer has its own key paths, so nothing repeats:
+    every projection draws, and each layer's ctx keeps its own draws, so
+    no more than one layer's 7 are alive at any draw."""
+    import weakref
+
+    _, _, tm, tp = models
+    alive, peak = [], [0]
+
+    def tracked(path, n_ports, n_bits, device):
+        ux, uw = jax_draws(path, n_ports, n_bits, device)
+        alive.append(weakref.ref(uw))
+        peak[0] = max(peak[0], sum(r() is not None for r in alive))
+        return ux, uw
+
+    toks = torch.from_numpy(np.random.default_rng(6).integers(0, tm.cfg.vocab_size, (2, 5)))
+    tm.prefill(tp, toks.long(), lengths=torch.tensor([5, 3]), max_seq=8,
+               approx=TApprox(backend=TBackend.SC, mode=TMode.MODEL), rng=(4,), draws=tracked)
+    assert len(alive) == 7 * tm.cfg.n_layers + 1
+    assert peak[0] == 7

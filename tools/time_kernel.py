@@ -1,0 +1,169 @@
+#!/usr/bin/env python3
+"""Time an SC or analog kernel at every serving shape of qwen2.5-3b on the
+card, K5 (``sc_matmul_packed_fused``), K7 (``analog_matmul_fused``) or K4
+(``sc_matmul_packed``, prefill), for the ``repro_torch`` package under
+``--src``, so that two trees can be timed in turns in one run on one card:
+
+  python3 tools/time_kernel.py --kernel k5 --label change
+  python3 tools/time_kernel.py --kernel k5 --src parent/src --label parent
+
+Needs a CUDA device.  Operands are the emulator's own (its value-domain
+code on random bf16 activations and fan-in-scaled weights, seed 1), M = 4
+(the engine's decode slots; K4: 64, the largest prompt bucket of
+``chip_smoke.py``), empty epilogue, bf16 out; the SC draws are the port's
+own.  K5 takes the threshold tables of its draws built beforehand, as on
+the decode path, where a tree has them (``SCDraws``); a tree without
+them builds its tables inside every call, as K4 does in every tree here
+(a prefill projection shares one build between its two K4 calls).  Times: CUDA events
+over ``--iters`` calls of the wrapper after one warm-up, no L2 flush
+(``ms``: the host time of a call bounds it at small shapes), and the
+device time of the kernel's source file per call from a ``torch.profiler``
+trace of as many calls (``device_ms``; a trace with fewer of its kernels
+than calls is taken again, and a third short one fails the run).  For K5
+with tables, ``tables_device_ms`` is one table build.  Prints the card's
+name and power limit, then one JSON line per shape with the bytes bound
+(each plane, x and the output once, at 3.35 TB/s), the device time's
+share of it and, for K5, the word-build floor: ``K5_INSTR_PER_PAIR``
+instructions per weight pair at 128 lanes x 132 SMs x 1.98 GHz.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+from torch.autograd import DeviceType
+
+HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
+LANE_INSTR_S = 132 * 128 * 1.98e9  # H100 SXM: SMs x lanes x boost clock
+K5_INSTR_PER_PAIR = 63  # K5's word build and OR-accumulation per weight pair (sc_matmul.cu)
+DECODE_M, PREFILL_M = 4, 64
+# (K, N) of every dense() site of qwen2.5-3b: q/o, k/v, gate/up, down, lm_head
+SHAPES = [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048), (2048, 151936)]
+TRACE_TRIES = 3
+
+
+def device_ms(fn, iters: int, key: str) -> float:
+    """Device ms per call of the kernels named ``key``: see the module note."""
+    seen = []
+    for _ in range(TRACE_TRIES):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA and key in ev.name]
+        if len(evs) >= iters:
+            return sum(ev.time_range.elapsed_us() for ev in evs) / 1e3 / iters
+        seen.append(len(evs))
+    raise RuntimeError(f"traces of {iters} calls held {seen} kernels named {key!r}")
+
+
+def sc_operands(M, K, N, g, dev):
+    from repro_torch.configs.base import SCParams
+    from repro_torch.core.backends import _stream_planes
+    from repro_torch.kernels import ops
+
+    p = SCParams()
+    w = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).to(torch.bfloat16)
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    xp, xn, wp, wn, pre = _stream_planes(x, w, p)
+    xcat = torch.cat([xp, xn], dim=-1).contiguous()
+    ux, uw = ops.sc_draws((1, K, N, M), 2 * K, p.bits, dev)
+    return p, xcat, wp, wn, pre, ux, uw
+
+
+def k4_call(K, N, g, dev):
+    """The K4 call at one shape, its tables built in the call."""
+    from repro_torch.kernels import sc_matmul as sc
+
+    p, xcat, wp, wn, _, ux, uw = sc_operands(PREFILL_M, K, N, g, dev)
+    if not hasattr(sc, "SCDraws"):
+        return lambda: sc.sc_matmul_cuda(xcat, (wp, wn), p.bits, ux, uw), None
+    return lambda: sc.sc_matmul_cuda(xcat, (wp, wn), p.bits, (ux, uw)), None
+
+
+def k5_call(K, N, g, dev):
+    """The K5 call at one shape and, where the tree has them, a table build."""
+    from repro_torch.kernels import sc_matmul as sc
+
+    p, xcat, wp, wn, pre, ux, uw = sc_operands(DECODE_M, K, N, g, dev)
+    if not hasattr(sc, "SCDraws"):
+        return lambda: sc.sc_matmul_fused_cuda(xcat, (wp, wn), p.bits, ux, uw, pre, {},
+                                               torch.bfloat16), None
+    draws = sc.SCDraws(ux, uw)
+    draws.tables  # built now, as once per decode step
+    return (lambda: sc.sc_matmul_fused_cuda(xcat, (wp, wn), p.bits, draws, pre, {},
+                                            torch.bfloat16),
+            lambda: sc.sc_tables_cuda(ux, uw))
+
+
+def k7_call(K, N, g, dev):
+    from repro_torch.configs.base import AnalogParams
+    from repro_torch.core.backends import _array_planes
+    from repro_torch.kernels.analog_matmul import analog_matmul_fused_cuda
+
+    p = AnalogParams()
+    w = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).to(torch.bfloat16)
+    x = torch.randn((DECODE_M, K), generator=g, device=dev).to(torch.bfloat16)
+    xp, xn, wp, wn, pre = _array_planes(x, w, p)
+    xcat = torch.cat([xp, xn], dim=-1).contiguous()
+    return lambda: analog_matmul_fused_cuda(xcat, (wp, wn), p.array_size, p.adc_bits,
+                                            p.adc_range, pre, {}, torch.bfloat16), None
+
+
+KERNELS = {"k4": (k4_call, "repro_sc::"), "k5": (k5_call, "repro_sc::"),
+           "k7": (k7_call, "repro_analog::")}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=sorted(KERNELS), required=True)
+    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1] / "src"))
+    ap.add_argument("--label", default="")
+    ap.add_argument("--iters", type=int, default=20)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("time_kernel: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    make, key = KERNELS[args.kernel]
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(1)
+    for K, N in SHAPES:
+        run, tables = make(K, N, g, dev)
+        run()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(args.iters):
+            run()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / args.iters
+        dev_ms = device_ms(run, args.iters, key)
+        M = PREFILL_M if args.kernel == "k4" else DECODE_M
+        bound_ms = (2 * M * 2 * K + 2 * 2 * K * N + 2 * M * N) / HBM_BYTES_S * 1e3
+        row = {"label": args.label, "kernel": args.kernel, "shape": [M, K, N], "ms": ms,
+               "device_ms": dev_ms, "bound_ms": bound_ms, "share": bound_ms / dev_ms,
+               "card": card}
+        if args.kernel == "k5":
+            row["instr_floor_ms"] = K * N * K5_INSTR_PER_PAIR / LANE_INSTR_S * 1e3
+            if tables is not None:
+                tables()
+                row["tables_device_ms"] = device_ms(tables, args.iters, key)
+        print(json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
