@@ -12,7 +12,9 @@ checkout of the repository.  Phases, each synchronised before the next:
    shapes the serving path gives it (qwen2.5-3b full width): K1 and K2 for
    both multipliers, K4 and K5 (SC), K6 and K7 (analog) must be bitwise
    equal (the fused ones also with random epilogue operands); K3 within
-   1e-4.  The SC and analog operands come from the emulators' own
+   1e-4, also at G * dh = 6144 (granite-20b's attention group).  K2 runs
+   as the serving path calls it, on bf16 activations and weights that it
+   quantises itself, and on its integer-operand entry.  The SC and analog operands come from the emulators' own
    value-domain code on random bf16 activations and weights.  K5 takes
    the threshold tables of its draws built beforehand, as on the decode
    path, and the tables kernel is held bitwise against its plain version
@@ -26,11 +28,11 @@ checkout of the repository.  Phases, each synchronised before the next:
    on the card and on the CPU, backends exact, log_mult, approx_mult, sc
    and analog, with the same SC draws on both (made on the CPU).  Exact
    and multiplier-error requests: greedy tokens equal, logits within
-   1e-3.  SC and analog: every projection the card ran, recomputed on
-   the CPU by the plain version from the same operands and draws, is
-   bitwise equal (end to end, a stream bit or ADC level at a decision
-   boundary may flip when an upstream op differs in its last bit, so
-   their tokens are reported, not required equal).
+   1e-3.  Every emulated projection the card ran, recomputed on the CPU
+   by the plain version from the same operands (and draws), is bitwise
+   equal (end to end, a stream bit or ADC level at a decision boundary
+   may flip when an upstream op differs in its last bit, so SC and
+   analog tokens are reported, not required equal).
 4. Serve 10 requests at qwen2.5-3b full width (bf16, random weights from
    the seed; backends exact, log_mult, approx_mult, sc, analog cycled;
    fused decode) and check every kernel of the path was launched; then
@@ -75,8 +77,10 @@ KERNEL_SOURCES = {
     # reference's ops.sc_matmul_fused (jnp, not a Pallas kernel)
     "sc_tables": ("sc_matmul.cu", "ops.py:177"),
 }
-# the kernels the serving path launches (the packed-words entry of K4 is a check)
+# the kernels the serving path launches (K2's integer-operand entry and the
+# packed-words entry of K4 are checks off the path)
 PATH_KERNELS = tuple(KERNEL_SOURCES)
+EMULATED = ("log_mult", "approx_mult", "sc", "analog")
 
 
 def smi() -> str:
@@ -138,6 +142,24 @@ def bound(nbytes: float, ops: float, ops_s: float = CUDA_CORE_OPS_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _chip_epilogue(g, dev, N, dtype):
+    return {
+        "colgain": (1 + 0.05 * torch.randn(N, generator=g, device=dev)).to(dtype),
+        "coladd": (0.02 * torch.randn(N, generator=g, device=dev)).to(dtype),
+        "mean_coeffs": torch.tensor([0.01, -0.02, 0.003, -0.0004], device=dev),
+        "mean_scale": torch.tensor(1.7, device=dev),
+    }
+
+
+def _hold(kname, shape, got, want) -> None:
+    """Fail unless the kernel's output is bitwise its plain version's."""
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        diff = (got.float() - want.float()).abs().max().item()
+        raise AssertionError(f"{kname} {shape}: not bitwise equal to its plain version "
+                             f"(max |diff| {diff})")
+
+
 def phase_kernels(dev, cfg):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
@@ -145,100 +167,103 @@ def phase_kernels(dev, cfg):
         elementwise_matmul_cuda,
         elementwise_matmul_fused_cuda,
         elementwise_matmul_fused_ref,
+        int_operand_matmul_fused_cuda,
+        int_operand_matmul_fused_ref,
+        plain_multiplier,
     )
 
-    D, F_, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
-    H, KVd = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
-    # (K, N) of every dense() site: q/o, k/v, gate/up, down, lm_head
-    shapes = [(D, H), (D, KVd), (D, F_), (F_, D), (D, V)]
-    rep = (D, F_)  # the shape each kernel's summary entry reports
+    rep = (cfg.d_model, cfg.d_ff)  # the shape each kernel's summary entry reports
     g = torch.Generator(device=dev).manual_seed(0)
-    mults = {
-        "approx_mult": (127, 4, lambda a, b: ref.approx_mul(a, b, 4)),
-        "log_mult": (255, 0, ref.mitchell_mul),
-    }
+    bf = torch.bfloat16
+    # (largest integer operand, dropped bits, operand bits of the backend)
+    mults = {"approx_mult": (127, 4, 7), "log_mult": (255, 0, 8)}
     summary = {}
-    for mul, (hi, drop, mulf) in mults.items():
-        for K, N in shapes:
-            for kname, M in (("elementwise_matmul", PREFILL_M),
-                             ("elementwise_matmul_fused", DECODE_M)):
-                x = torch.randint(-hi, hi + 1, (M, K), generator=g, device=dev).to(torch.bfloat16)
-                w = torch.randint(-hi, hi + 1, (K, N), generator=g, device=dev).to(torch.bfloat16)
-                if kname == "elementwise_matmul":
-                    run = lambda: elementwise_matmul_cuda(x, w, mul, drop)
-                    plain = lambda: ref.elementwise_matmul_ref(x, w, mulf)
-                    out_bytes = 4 * M * N
-                    epis = [{}]
-                else:
-                    pre = (torch.rand((M, 1), generator=g, device=dev) * 1e-4).to(torch.bfloat16)
-                    epis = [{}, {
-                        "colgain": (1 + 0.05 * torch.randn(N, generator=g, device=dev)).to(torch.bfloat16),
-                        "coladd": (0.02 * torch.randn(N, generator=g, device=dev)).to(torch.bfloat16),
-                        "mean_coeffs": torch.tensor([0.01, -0.02, 0.003, -0.0004], device=dev),
-                        "mean_scale": torch.tensor(1.7, device=dev),
-                    }]
-                    out_bytes = 2 * M * N + 2 * M
-                err = 0.0
-                for epi in epis:
-                    if kname == "elementwise_matmul":
-                        got, want = run(), plain()
-                    else:
-                        got = elementwise_matmul_fused_cuda(x, w, mul, pre, epi, torch.bfloat16, drop)
-                        want = elementwise_matmul_fused_ref(x, w, mulf, pre, epi, torch.bfloat16)
-                    torch.cuda.synchronize()
-                    if not torch.equal(got, want):
-                        diff = (got.float() - want.float()).abs().max().item()
-                        raise AssertionError(
-                            f"{kname}[{mul}] {M}x{K}x{N} epi={sorted(epi)}: not bitwise "
-                            f"equal to its plain version (max |diff| {diff})"
-                        )
-                    err = max(err, (got.float() - want.float()).abs().max().item())
-                if kname == "elementwise_matmul_fused":
-                    run = lambda: elementwise_matmul_fused_cuda(x, w, mul, pre, {}, torch.bfloat16, drop)
-                    plain = lambda: elementwise_matmul_fused_ref(x, w, mulf, pre, {}, torch.bfloat16)
-                iters = 3 if M * K * N > 2e9 else 10
-                ms = cuda_ms(run, iters)
-                dev_ms = device_ms(run, iters, "repro_vpu::")
-                plain_ms = cuda_ms(plain, 1)
-                b_ms, b_by = bound(2 * (M * K + K * N) + out_bytes, 2.0 * M * K * N)
-                row = {"name": f"{kname}[{mul}]", "shape": [M, K, N], "max_abs_err": err,
-                       "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                       "bound_by": b_by, "library_ms": None}
-                print(f"[kernels] {json.dumps(row)}", flush=True)
-                if (K, N) == rep:
-                    summary[row["name"]] = row
-                del x, w
-                torch.cuda.empty_cache()
 
-    # K3 at the decode shape: B slots, S = serving window, per-row positions
-    B, KV, G, dh = DECODE_M, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head
-    q = torch.randn((B, KV, G, dh), generator=g, device=dev).to(torch.bfloat16)
-    ck = torch.randn((B, MAX_SEQ, KV, dh), generator=g, device=dev).to(torch.bfloat16)
-    cv = torch.randn((B, MAX_SEQ, KV, dh), generator=g, device=dev).to(torch.bfloat16)
-    pos = torch.randint(16, MAX_SEQ, (B,), generator=g, device=dev).to(torch.int32)
-    got, want = flash_decode(q, ck, cv, pos), flash_decode_ref(q, ck, cv, pos)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    if not err <= 1e-4:
-        raise AssertionError(f"flash_decode: max |diff| {err} > 1e-4 against its plain version")
-    # library yardstick: masked SDPA over the same inputs, heads expanded
-    qh = q.reshape(B, KV * G, 1, dh)
-    kh = ck.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
-    vh = cv.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
-    mask = (torch.arange(MAX_SEQ, device=dev)[None, :] <= pos[:, None])[:, None, None, :]
-    lib = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
-    lib_err = (lib().float().reshape(B, KV, G, dh) - want).abs().max().item()
-    keys = int((pos.long() + 1).sum())
-    nbytes = 2 * q.numel() + 2 * 2 * keys * KV * dh + 4 * B + 4 * got.numel()
-    b_ms, b_by = bound(nbytes, 4.0 * keys * KV * G * dh)
-    row = {"name": "flash_decode", "shape": [B, MAX_SEQ, KV, G, dh], "max_abs_err": err,
-           "ms": cuda_ms(lambda: flash_decode(q, ck, cv, pos), 50),
-           "device_ms": device_ms(lambda: flash_decode(q, ck, cv, pos), 50, "flash_decode"),
-           "plain_ms": cuda_ms(lambda: flash_decode_ref(q, ck, cv, pos), 50),
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(lib, 50),
-           "library_max_abs_err": lib_err}
-    summary["flash_decode"] = row
-    print(f"[kernels] {json.dumps(row)}", flush=True)
+    def report(name, M, K, N, err, run, plain, nbytes, key="repro_vpu::"):
+        iters = 3 if M * K * N > 2e9 else 10
+        b_ms, b_by = bound(nbytes, 2.0 * M * K * N)
+        row = {"name": name, "shape": [M, K, N], "max_abs_err": err,
+               "ms": cuda_ms(run, iters), "device_ms": device_ms(run, iters, key),
+               "plain_ms": cuda_ms(plain, 1), "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": None}
+        print(f"[kernels] {json.dumps(row)}", flush=True)
+        if (K, N) == rep:
+            summary[name] = row
+
+    for mul, (hi, drop, bits) in mults.items():
+        mulf = plain_multiplier(mul, drop)
+        for K, N in _site_shapes(cfg):
+            # K1 (prefill) on integer operands
+            M = PREFILL_M
+            x = torch.randint(-hi, hi + 1, (M, K), generator=g, device=dev).to(bf)
+            w = torch.randint(-hi, hi + 1, (K, N), generator=g, device=dev).to(bf)
+            run = lambda: elementwise_matmul_cuda(x, w, mul, drop)
+            plain = lambda: ref.elementwise_matmul_ref(x, w, mulf)
+            _hold(f"elementwise_matmul[{mul}]", (M, K, N), run(), plain())
+            report(f"elementwise_matmul[{mul}]", M, K, N, 0.0, run, plain,
+                   2 * (M * K + K * N) + 4 * M * N)
+            # K2's integer-operand entry (the reference kernel's interface)
+            M = DECODE_M
+            x, w = x[:M].contiguous(), w
+            pre = (torch.rand((M, 1), generator=g, device=dev) * 1e-4).to(bf)
+            for epi in ({}, _chip_epilogue(g, dev, N, bf)):
+                _hold(f"elementwise_matmul_fused[{mul},int]", (M, K, N),
+                      elementwise_matmul_fused_cuda(x, w, mul, pre, epi, bf, drop),
+                      elementwise_matmul_fused_ref(x, w, mulf, pre, epi, bf))
+            if (K, N) == rep:
+                report(f"elementwise_matmul_fused[{mul},int]", M, K, N, 0.0,
+                       lambda: elementwise_matmul_fused_cuda(x, w, mul, pre, {}, bf, drop),
+                       lambda: elementwise_matmul_fused_ref(x, w, mulf, pre, {}, bf),
+                       2 * (M * K + K * N) + 2 * M * N + 2 * M)
+            # K2 as the serving path calls it: bf16 activations and
+            # fan-in-scaled weights, quantised in the kernel
+            x = torch.randn((M, K), generator=g, device=dev).to(bf)
+            w = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).to(bf)
+            for epi in ({}, _chip_epilogue(g, dev, N, bf)):
+                _hold(f"elementwise_matmul_fused[{mul}]", (M, K, N),
+                      int_operand_matmul_fused_cuda(x, w, bits, mul, epi, bf, drop),
+                      int_operand_matmul_fused_ref(x, w, bits, mulf, epi, bf))
+            report(f"elementwise_matmul_fused[{mul}]", M, K, N, 0.0,
+                   lambda: int_operand_matmul_fused_cuda(x, w, bits, mul, {}, bf, drop),
+                   lambda: int_operand_matmul_fused_ref(x, w, bits, mulf, {}, bf),
+                   2 * (M * K + K * N) + 2 * M * N)
+            del x, w
+            torch.cuda.empty_cache()
+
+    # K3 at the decode shape: B slots, S = serving window, per-row
+    # positions; and at granite-20b's group (48 query heads of one KV
+    # head, G * dh = 6144: split across blocks of 2048 outputs)
+    B = DECODE_M
+    for KV, G, dh in ((cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head), (1, 48, 128)):
+        q = torch.randn((B, KV, G, dh), generator=g, device=dev).to(bf)
+        ck = torch.randn((B, MAX_SEQ, KV, dh), generator=g, device=dev).to(bf)
+        cv = torch.randn((B, MAX_SEQ, KV, dh), generator=g, device=dev).to(bf)
+        pos = torch.randint(16, MAX_SEQ, (B,), generator=g, device=dev).to(torch.int32)
+        got, want = flash_decode(q, ck, cv, pos), flash_decode_ref(q, ck, cv, pos)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not err <= 1e-4:
+            raise AssertionError(f"flash_decode G*dh={G * dh}: max |diff| {err} > 1e-4 "
+                                 f"against its plain version")
+        # library yardstick: masked SDPA over the same inputs, heads expanded
+        qh = q.reshape(B, KV * G, 1, dh)
+        kh = ck.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+        vh = cv.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+        mask = (torch.arange(MAX_SEQ, device=dev)[None, :] <= pos[:, None])[:, None, None, :]
+        lib = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+        lib_err = (lib().float().reshape(B, KV, G, dh) - want).abs().max().item()
+        keys = int((pos.long() + 1).sum())
+        nbytes = 2 * q.numel() + 2 * 2 * keys * KV * dh + 4 * B + 4 * got.numel()
+        b_ms, b_by = bound(nbytes, 4.0 * keys * KV * G * dh)
+        run = lambda: flash_decode(q, ck, cv, pos)
+        row = {"name": "flash_decode", "shape": [B, MAX_SEQ, KV, G, dh], "max_abs_err": err,
+               "ms": cuda_ms(run, 50), "device_ms": device_ms(run, 50, "flash_decode"),
+               "plain_ms": cuda_ms(lambda: flash_decode_ref(q, ck, cv, pos), 50),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(lib, 50),
+               "library_max_abs_err": lib_err}
+        if "flash_decode" not in summary:  # the serving shape
+            summary["flash_decode"] = row
+        print(f"[kernels] {json.dumps(row)}", flush=True)
     return summary
 
 
@@ -459,7 +484,7 @@ def phase_reference(dev):
         eng = Engine(model, params, n_slots=2, max_seq=32, fused=True, collect_logits=True,
                      device=device, draws=cpu_draws)
         if name == "cuda":
-            seen, restore = _record_projections(("sc", "analog"))
+            seen, restore = _record_projections(EMULATED)
         try:
             res[name] = eng.run(queue)
         finally:
@@ -480,7 +505,7 @@ def phase_reference(dev):
             np.testing.assert_allclose(a, b, atol=1e-3, rtol=1e-3)
             worst = max(worst, float(np.abs(a - b).max()))
     kinds = {(n, f) for n, f, *_ in seen}
-    if kinds != {(n, f) for n in ("sc", "analog") for f in (False, True)}:
+    if kinds != {(n, f) for n in EMULATED for f in (False, True)}:
         raise AssertionError(f"smoke run projections: {sorted(kinds)}")
     for name, fused, x, w, p, rng, epi, y in seen:
         spec = registry.get(name)
@@ -491,8 +516,9 @@ def phase_reference(dev):
             raise AssertionError(f"smoke {name} projection {tuple(x.shape)}x{tuple(w.shape)} "
                                  f"fused={fused}: card != CPU (max |diff| {diff})")
     print(f"[reference] smoke engine on card == CPU: {len(res['cpu'])} requests; exact and "
-          f"multiplier-error tokens equal, max |logit diff| {worst}; {len(seen)} SC/analog "
-          f"projections bitwise equal; SC/analog tokens equal end to end: {agree}/{total}",
+          f"multiplier-error tokens equal, max |logit diff| {worst}; {len(seen)} emulated "
+          f"projections ({', '.join(EMULATED)}) bitwise equal; SC/analog tokens equal end "
+          f"to end: {agree}/{total}",
           flush=True)
 
 

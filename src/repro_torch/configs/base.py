@@ -89,32 +89,61 @@ class ApproxConfig:
     skip_lm_head: bool = False  # keep the LM head exact
 
     def __post_init__(self):
+        # a params object of the wrong class fails here, not by running the
+        # experiment on default hardware knobs
+        for field_name, cls in (
+            ("sc", SCParams),
+            ("approx_mult", ApproxMultParams),
+            ("analog", AnalogParams),
+            ("log_mult", LogMultParams),
+        ):
+            value = getattr(self, field_name)
+            if not isinstance(value, cls):
+                raise TypeError(
+                    f"ApproxConfig.{field_name} must be a {cls.__name__}; "
+                    f"got {type(value).__name__}"
+                )
         for entry in self.site_backends:
             if len(tuple(entry)) != 2:
                 raise ValueError(
                     "site_backends entries must be (site-pattern, backend-name) "
                     f"pairs, e.g. ('attn_*', 'log_mult'); got {entry!r}"
                 )
-            Backend(entry[1])  # unknown names fail here, not mid-forward
+            try:
+                resolve_backend(entry[1])  # unknown names fail here, not mid-forward
+            except KeyError as e:
+                raise ValueError(f"site_backends: {e.args[0]}") from None
 
-    def backend_for(self, site: str) -> Backend:
-        """The backend a projection site executes on (override map first)."""
+    def backend_for(self, site: str):
+        """The backend a projection site executes on (override map first):
+        a :class:`Backend` member, or the registry name of a backend
+        registered outside the enum."""
         hit = _match_backend(self.site_backends, site)
         return self.backend if hit is None else hit
 
     def params_for(self, backend):
-        """The per-backend params instance (None for exact)."""
-        backend = Backend(backend)
+        """The per-backend params instance (None for exact).  Built-in
+        backends read the config field of their name; a backend registered
+        outside the enum gets its spec's params class's defaults."""
         if backend == Backend.EXACT:
             return None
-        return getattr(self, backend.value)
+        name = backend.value if isinstance(backend, Backend) else str(backend)
+        from repro_torch.core import registry  # deferred: registry imports this module
+
+        cls = registry.get(name).params_cls
+        # a registered name that collides with an unrelated field ('mode',
+        # ...) must not be handed that field as its params
+        params = getattr(self, name, None)
+        if isinstance(params, cls):
+            return params
+        return None if cls is type(None) else cls()
 
     @property
-    def approx_backends(self) -> Tuple[Backend, ...]:
+    def approx_backends(self) -> Tuple:
         """Every non-exact backend this config can route a site to."""
         out = [] if self.backend == Backend.EXACT else [self.backend]
         for _, name in self.site_backends:
-            b = Backend(name)
+            b = resolve_backend(name)
             if b != Backend.EXACT and b not in out:
                 out.append(b)
         return tuple(out)
@@ -124,11 +153,24 @@ class ApproxConfig:
         return bool(self.approx_backends) and self.mode != TrainMode.NO_MODEL
 
 
+def resolve_backend(name: str):
+    """The :class:`Backend` member of a built-in name, else the name itself
+    once it is found in the backend registry (raises ``KeyError``, listing
+    what is registered, for an unknown name)."""
+    try:
+        return Backend(name)
+    except ValueError:
+        from repro_torch.core import registry  # deferred: registry imports this module
+
+        registry.get(name)
+        return str(name)
+
+
 @functools.lru_cache(maxsize=4096)
 def _match_backend(site_backends: Tuple, site: str):
     for pattern, name in site_backends:
         if fnmatch.fnmatchcase(site, pattern):
-            return Backend(name)
+            return resolve_backend(name)
     return None
 
 

@@ -4,9 +4,12 @@ emulators, their fused variants, ``fake_quant_unipolar`` and the built-in
 registry entries).
 
 The value-domain scaling — dynamic scales, split-unipolar planes,
-operand quantisation — stays here in plain torch, op for op as in the
+operand quantisation — runs in plain torch, op for op as in the
 reference (``torch.round`` rounds half to even like ``jnp.round``); the
-kernels in :mod:`repro_torch.kernels.ops` do the contractions.  Two
+kernels in :mod:`repro_torch.kernels.ops` do the contractions.  The
+exception is the fused path of approx_mult and log_mult: K2 takes the
+operands themselves and quantises them on load, bit for bit as
+:func:`repro_torch.kernels.vpu_matmul.int_operand_quantize` does.  Two
 details keep the ops those of the reference:
 
 * A Python constant meets a tensor as a 0-dim tensor of the tensor's
@@ -33,10 +36,11 @@ from repro_torch.configs.base import (
     SCParams,
 )
 from repro_torch.core import registry
-from repro_torch.core.proxy import row_scale, split_signed, tensor_scale
+from repro_torch.core.proxy import split_signed, tensor_scale
 from repro_torch.core.registry import BackendSpec, concat_planes, split_unipolar_contract
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import const
+from repro_torch.kernels.vpu_matmul import int_operand_quantize as _int_operand_quantize
 
 
 def fake_quant_unipolar(x, bits: int):
@@ -103,17 +107,6 @@ def _emulate_analog(x, w, p: AnalogParams, rng):
     return (out * prescale).to(x.dtype)
 
 
-def _int_operand_quantize(x, w, bits: int):
-    """Per-token dynamic quantisation to signed integer magnitudes, plus
-    the value-domain prescale that undoes it after the contraction."""
-    levels = (1 << bits) - 1
-    sx = row_scale(x)
-    sw = tensor_scale(w)
-    xi = torch.round(torch.clamp(x / sx, -1.0, 1.0) * levels)
-    wi = torch.round(torch.clamp(w / sw, -1.0, 1.0) * levels)
-    return xi, wi, sx * sw / const(levels * levels, sx)
-
-
 def _int_operand_emulate(x, w, bits: int, matmul):
     """Scale to signed integers, contract through ``matmul``, rescale."""
     xi, wi, prescale = _int_operand_quantize(x, w, bits)
@@ -136,31 +129,34 @@ def _emulate_log_mult(x, w, p: LogMultParams, rng):
 
 # Fused MODEL-mode emulators: matmul + chip/calibration epilogue in one
 # kernel call (the serving decode path).  Scaling mirrors the composed
-# emulators above op for op, so fused == composed bit for bit.
+# emulators above op for op, so fused == composed bit for bit.  The
+# multiplier-error backends hand the operands themselves to the kernel,
+# which quantises them on load (the reference's _fused_int_operand runs
+# _int_operand_quantize in front of the fused kernel, which XLA fuses into
+# one program): no plain-torch op runs over the weight.
 
 
-def _fused_int_operand(x, w, bits: int, fused_matmul, epi: dict):
-    xi, wi, prescale = _int_operand_quantize(x, w, bits)
-    y = fused_matmul(
-        xi.reshape(-1, x.shape[-1]), wi, prescale.reshape(-1, 1), epi, x.dtype
-    )
+def _fused_int_operand(x, w, matmul_quantized, epi: dict):
+    x2 = x.reshape(-1, x.shape[-1])
+    # a tied lm_head's weight is a transposed view (not a qwen2.5-3b path)
+    y = matmul_quantized(x2.contiguous(), w.contiguous(), epi, x.dtype)
     return y.reshape(x.shape[:-1] + (w.shape[-1],))
 
 
 def _fused_emulate_approx_mult(x, w, p: ApproxMultParams, rng, epi):
     del rng
     return _fused_int_operand(
-        x, w, p.bits,
-        lambda a, b, pre, e, dt: kops.approx_mult_matmul_fused(
-            a, b, p.bits, p.perforate, pre, e, dt
-        ),
+        x, w,
+        lambda a, b, e, dt: kops.approx_mult_matmul_quantized(a, b, p.bits, p.perforate, e, dt),
         epi,
     )
 
 
 def _fused_emulate_log_mult(x, w, p: LogMultParams, rng, epi):
     del rng
-    return _fused_int_operand(x, w, p.bits, kops.log_matmul_fused, epi)
+    return _fused_int_operand(
+        x, w, lambda a, b, e, dt: kops.log_matmul_quantized(a, b, p.bits, e, dt), epi
+    )
 
 
 def _fused_emulate_sc(x, w, p: SCParams, rng, epi):

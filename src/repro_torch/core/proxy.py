@@ -5,19 +5,21 @@ from __future__ import annotations
 
 import torch
 
+OPERAND_EPS = 1e-6  # the floor of a dynamic scale
+
 
 def split_signed(x):
     """Split a signed tensor into its unipolar halves (both >= 0)."""
     return torch.clamp_min(x, 0.0), torch.clamp_min(-x, 0.0)
 
 
-def tensor_scale(x, eps: float = 1e-6):
+def tensor_scale(x, eps: float = OPERAND_EPS):
     """Per-tensor dynamic scale: max |x|, never below eps."""
     m = torch.amax(torch.abs(x))
     return torch.maximum(m, torch.tensor(eps, dtype=x.dtype, device=x.device))
 
 
-def row_scale(x, eps: float = 1e-6):
+def row_scale(x, eps: float = OPERAND_EPS):
     """Per-row (per-token) dynamic scale: max |x| over the contraction
     axis, keepdims.  Per-token quantisation keeps the multiplier-error
     emulations batch-invariant: a request's quantisation grid never

@@ -6,6 +6,7 @@ from __future__ import annotations
 from repro_torch.kernels.vpu_matmul import (
     elementwise_matmul_cuda,
     elementwise_matmul_fused_cuda,
+    int_operand_matmul_fused_cuda,
 )
 
 
@@ -23,6 +24,15 @@ def approx_mult_matmul_fused(
     _check_bits(mult_bits)
     return elementwise_matmul_fused_cuda(
         x, w, "approx_mult", prescale, epi, out_dtype, 2 * perforate
+    )
+
+
+def approx_mult_matmul_quantized(x, w, mult_bits: int, perforate: int, epi: dict, out_dtype):
+    """x [M, K] and w [K, N] as they are (float32 or bfloat16), quantised
+    to ``mult_bits``-bit integers in the kernel, then the truncated-product
+    matmul with the rescale and the epilogue in the same call."""
+    return int_operand_matmul_fused_cuda(
+        x, w, mult_bits, "approx_mult", epi, out_dtype, 2 * perforate
     )
 
 

@@ -42,6 +42,15 @@ SIGNATURES = {
             _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F, _F, _P, _P,
             _I, _I, _I, _I, _P,
         ),
+        # mul, in_bf16, out_bf16, x, w, hold, scales, lev, lev2, eps_in,
+        # gain, add, coeffs, P, mean_scale, eps, acc, out, M, N, K,
+        # drop_bits, stream
+        # M -> words of vpu_quantize_matmul_fused's scales buffer
+        "vpu_scales_words": (_I,),
+        "vpu_quantize_matmul_fused": (
+            _I, _I, _I, _P, _P, _P, _P, _F, _F, _F, _P, _P, _P, _I, _F, _F,
+            _P, _P, _I, _I, _I, _I, _P,
+        ),
     },
     "flash_decode": {
         # in_bf16, q, ck, cv, pos, out, B, S, KV, G, dh, scale, stream
@@ -81,8 +90,13 @@ SIGNATURES = {
 LAUNCHES: Dict[str, int] = {
     "elementwise_matmul[approx_mult]": 0,
     "elementwise_matmul[log_mult]": 0,
+    # K2 on the operands themselves, quantising them on load: the serving path
     "elementwise_matmul_fused[approx_mult]": 0,
     "elementwise_matmul_fused[log_mult]": 0,
+    # K2 on integer-valued operands, the reference kernel's own interface:
+    # a check entry, off the serving path
+    "elementwise_matmul_fused[approx_mult,int]": 0,
+    "elementwise_matmul_fused[log_mult,int]": 0,
     "flash_decode": 0,
     "sc_matmul_packed": 0,
     "sc_matmul_packed_fused": 0,

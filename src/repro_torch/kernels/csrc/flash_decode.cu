@@ -11,8 +11,12 @@
 // as much as bandwidth.
 //
 // What the design does about it:
-// * One block per (kv head, batch row) serves all G query heads of the
-//   group, so every key and value row is read from device memory once.
+// * One block per (kv head, batch row) serves up to GT query heads of the
+//   group, GT * dh <= 2048 outputs (8 accumulator registers a thread), so
+//   every key and value row is read from device memory once per GT heads.
+//   A larger group (G * dh > 2048: granite-20b's 48 heads of one KV head,
+//   dh 128, hold 6144) is split across a third grid dimension of G tiles,
+//   each reading the group's rows again, mostly from L2.
 // * The block walks only the keys 0..pos[b] in chunks of TS rows staged in
 //   shared memory; keys past pos are never read (the reference's bucketed
 //   block skip).  The ragged last chunk is masked with -1e30 like the
@@ -23,6 +27,8 @@
 //   softmax, not bitwise: the online softmax reassociates the sums.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "epilogue.cuh"
 
@@ -37,23 +43,26 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
     flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ ck,
                         const T* __restrict__ cv, const int* __restrict__ pos,
-                        float* __restrict__ out, int S, int KV, int G, int dh, float scale) {
+                        float* __restrict__ out, int S, int KV, int G_all, int GT, int dh,
+                        float scale) {
   extern __shared__ float smem[];
-  float* qs = smem;                  // [G][dh]
-  float* ks = qs + G * dh;           // [TS][dh + 1] (padded: conflict-free dots)
+  float* qs = smem;                  // [GT][dh]
+  float* ks = qs + GT * dh;          // [TS][dh + 1] (padded: conflict-free dots)
   float* vs = ks + TS * (dh + 1);    // [TS][dh]
-  float* ps = vs + TS * dh;          // [G][TS] logits, then probabilities
-  float* ms = ps + G * TS;           // [G] running max
-  float* ls = ms + G;                // [G] running normaliser
-  float* al = ls + G;                // [G] this chunk's rescale factor
+  float* ps = vs + TS * dh;          // [GT][TS] logits, then probabilities
+  float* ms = ps + GT * TS;          // [GT] running max
+  float* ls = ms + GT;               // [GT] running normaliser
+  float* al = ls + GT;               // [GT] this chunk's rescale factor
 
   const int kv = blockIdx.x, b = blockIdx.y;
+  const int g0 = blockIdx.z * GT;        // this block's query heads g0 .. g0 + G - 1
+  const int G = min(GT, G_all - g0);
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int n = min(pos[b], S - 1) + 1;  // keys 0..pos
   const int GD = G * dh;
 
-  const size_t qbase = ((size_t)b * KV + kv) * GD;
+  const size_t qbase = (((size_t)b * KV + kv) * G_all + g0) * dh;
   for (int i = tid; i < GD; i += THREADS) qs[i] = repro_epi::load<T>(q, qbase + i);
   for (int g = tid; g < G; g += THREADS) {
     ms[g] = NEG_INF;
@@ -128,25 +137,27 @@ __global__ void __launch_bounds__(THREADS)
 template <typename T>
 int launch(const void* q, const void* ck, const void* cv, const int* pos, float* out, int B,
            int S, int KV, int G, int dh, float scale, cudaStream_t st) {
-  const size_t bytes = sizeof(float) * ((size_t)G * dh + (size_t)TS * (dh + 1) +
-                                        (size_t)TS * dh + (size_t)G * TS + 3 * (size_t)G);
+  const int GT = std::min(G, THREADS * MAX_R / dh);  // query heads of a block
+  const size_t bytes = sizeof(float) * ((size_t)GT * dh + (size_t)TS * (dh + 1) +
+                                        (size_t)TS * dh + (size_t)GT * TS + 3 * (size_t)GT);
   cudaFuncSetAttribute(flash_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)bytes);
-  flash_decode_kernel<T><<<dim3(KV, B), THREADS, bytes, st>>>(
+  flash_decode_kernel<T><<<dim3(KV, B, (G + GT - 1) / GT), THREADS, bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(ck), static_cast<const T*>(cv), pos, out,
-      S, KV, G, dh, scale);
+      S, KV, G, GT, dh, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q: [B,KV,G,dh], caches: [B,S,KV,dh] (float32 or bfloat16, contiguous),
-// pos: [B] int32, out: [B,KV,G,dh] float32.  Needs G * dh <= 2048.
+// pos: [B] int32, out: [B,KV,G,dh] float32.  Needs dh <= 2048; a group of
+// more than 2048 / dh query heads is split across blocks.
 extern "C" int flash_decode(int in_bf16, const void* q, const void* ck, const void* cv,
                             const int* pos, float* out, int B, int S, int KV, int G, int dh,
                             float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G * dh > THREADS * MAX_R) return (int)cudaErrorInvalidValue;
+  if (dh > THREADS * MAX_R) return (int)cudaErrorInvalidValue;
   if (in_bf16) return launch<__nv_bfloat16>(q, ck, cv, pos, out, B, S, KV, G, dh, scale, st);
   return launch<float>(q, ck, cv, pos, out, B, S, KV, G, dh, scale, st);
 }

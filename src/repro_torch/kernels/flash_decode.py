@@ -11,6 +11,9 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
+# outputs a block of the kernel holds: a group of G query heads with
+# G * dh above it is split across blocks of at most 2048 // dh heads
+MAX_BLOCK_OUTPUTS = 2048
 
 
 def flash_decode(q, cache_k, cache_v, pos_vec):
@@ -32,8 +35,8 @@ def flash_decode(q, cache_k, cache_v, pos_vec):
         raise ValueError(f"caches must be [B,S,KV,dh]={B, S, KV, dh}")
     if not (q.is_contiguous() and cache_k.is_contiguous() and cache_v.is_contiguous()):
         raise ValueError("q and caches must be contiguous")
-    if G * dh > 2048:
-        raise ValueError(f"flash_decode kernel holds G*dh <= 2048 outputs per block; got {G * dh}")
+    if dh > MAX_BLOCK_OUTPUTS:
+        raise ValueError(f"flash_decode kernel holds dh <= {MAX_BLOCK_OUTPUTS}; got {dh}")
     pos = pos_vec.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty((B, KV, G, dh), dtype=torch.float32, device=dev)
     build.launch(

@@ -20,7 +20,11 @@ from repro_torch.kernels import flash_decode as _flash
 from repro_torch.kernels import log_matmul as _log
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import sc_matmul as _sc
-from repro_torch.kernels.vpu_matmul import elementwise_matmul_fused_ref
+from repro_torch.kernels.vpu_matmul import (
+    elementwise_matmul_fused_ref,
+    int_operand_matmul_fused_ref,
+    plain_multiplier,
+)
 
 
 def _on_cuda(*tensors) -> bool:
@@ -96,9 +100,8 @@ def approx_mult_matmul_fused(
         return _amult.approx_mult_matmul_fused(
             x, w, mult_bits, perforate, prescale, epi, out_dtype
         )
-    drop_bits = 2 * perforate
     return elementwise_matmul_fused_ref(
-        x, w, lambda a, b: kref.approx_mul(a, b, drop_bits), prescale, epi, out_dtype
+        x, w, plain_multiplier("approx_mult", 2 * perforate), prescale, epi, out_dtype
     )
 
 
@@ -108,6 +111,27 @@ def log_matmul_fused(x, w, prescale, epi: dict, out_dtype):
         return _log.log_matmul_fused(x, w, prescale, epi, out_dtype)
     return elementwise_matmul_fused_ref(
         x, w, kref.mitchell_mul, prescale, epi, out_dtype
+    )
+
+
+def approx_mult_matmul_quantized(x, w, mult_bits: int, perforate: int, epi: dict, out_dtype):
+    """[M,K] @ [K,N] of the operands themselves: quantised to ``mult_bits``
+    bits (per-token activation scales, a per-tensor weight scale), through
+    the approximate multiplier, rescaled, with the fused epilogue."""
+    if _on_cuda(x, w):
+        return _amult.approx_mult_matmul_quantized(x, w, mult_bits, perforate, epi, out_dtype)
+    return int_operand_matmul_fused_ref(
+        x, w, mult_bits, plain_multiplier("approx_mult", 2 * perforate), epi, out_dtype
+    )
+
+
+def log_matmul_quantized(x, w, bits: int, epi: dict, out_dtype):
+    """[M,K] @ [K,N] of the operands themselves: quantised to ``bits`` bits,
+    through the Mitchell multiplier, rescaled, with the fused epilogue."""
+    if _on_cuda(x, w):
+        return _log.log_matmul_quantized(x, w, bits, epi, out_dtype)
+    return int_operand_matmul_fused_ref(
+        x, w, bits, plain_multiplier("log_mult"), epi, out_dtype
     )
 
 

@@ -1,41 +1,80 @@
 """Multiplier-error contractions: the CUDA kernels K1/K2 and the plain
-fused version (port of ``repro.kernels.vpu_matmul``).
+fused versions (port of ``repro.kernels.vpu_matmul``, and of the operand
+quantisation ``repro.core.backends._int_operand_quantize`` that K2 takes
+in).
 
-``elementwise_matmul_cuda`` (K1) and ``elementwise_matmul_fused_cuda``
-(K2) launch ``csrc/vpu_matmul.cu``; the multiplier is picked by name
-(``"approx_mult"`` or ``"log_mult"``), since the per-product op lives in
-the CUDA source.  Their plain versions are :func:`repro_torch.kernels.ref.
-elementwise_matmul_ref` and :func:`elementwise_matmul_fused_ref` below.
+``elementwise_matmul_cuda`` (K1), ``int_operand_matmul_fused_cuda`` (K2 on
+the operands themselves, the serving path) and
+``elementwise_matmul_fused_cuda`` (K2 on integer-valued operands, the
+reference kernel's interface) launch ``csrc/vpu_matmul.cu``; the
+multiplier is picked by name (``"approx_mult"`` or ``"log_mult"``), since
+the per-product op lives in the CUDA source.  Their plain versions are
+:func:`repro_torch.kernels.ref.elementwise_matmul_ref`,
+:func:`int_operand_matmul_fused_ref` and :func:`elementwise_matmul_fused_ref`
+below.
 
-Operands are integer-valued float32 or bfloat16 tensors of magnitude at
-most 255 (what the backends' operand quantisation produces).  The kernel
-reads them as integers: a non-integer operand is rounded to the nearest
-integer, where the plain version would multiply it as a float.
+The integer entries take integer-valued float32 or bfloat16 tensors of
+magnitude at most 255 (what the operand quantisation produces).  The
+kernels read them as integers: a non-integer operand is rounded to the
+nearest integer, where the plain version would multiply it as a float.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.proxy import OPERAND_EPS, row_scale, tensor_scale
 from repro_torch.kernels import build
 from repro_torch.kernels.epilogue import ROW_EPS, apply_epilogue
-from repro_torch.kernels.ref import elementwise_matmul_ref
+from repro_torch.kernels.ref import approx_mul, const, elementwise_matmul_ref, mitchell_mul
 
 _MUL_CODE = {"approx_mult": 0, "log_mult": 1}
 # K * 255 * 255 must fit the int32 accumulator
 MAX_K = (2**31 - 1) // (255 * 255)
+MAX_BITS = 8  # operands of at most 8 bits: |xi|, |wi| <= 255
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def plain_multiplier(mul: str, drop_bits: int = 0) -> Callable:
+    """The named multiplier as the plain versions take it."""
+    if mul == "approx_mult":
+        return lambda a, b: approx_mul(a, b, drop_bits)
+    if mul == "log_mult":
+        return mitchell_mul
+    raise ValueError(f"unknown multiplier {mul!r}; expected one of {sorted(_MUL_CODE)}")
+
+
+def int_operand_quantize(x, w, bits: int):
+    """Per-token dynamic quantisation to signed integer magnitudes, plus
+    the value-domain prescale that undoes it after the contraction (the
+    reference's ``_int_operand_quantize``, op for op)."""
+    levels = (1 << bits) - 1
+    sx = row_scale(x)
+    sw = tensor_scale(w)
+    xi = torch.round(torch.clamp(x / sx, -1.0, 1.0) * levels)
+    wi = torch.round(torch.clamp(w / sw, -1.0, 1.0) * levels)
+    return xi, wi, sx * sw / const(levels * levels, sx)
 
 
 def elementwise_matmul_fused_ref(
     x, w, mul: Callable, prescale, epi: Dict, out_dtype
 ):
     """K1's contraction, ``(acc * prescale).to(out_dtype)``, then the
-    epilogue in ``out_dtype`` — the plain version of K2."""
+    epilogue in ``out_dtype`` — the plain version of K2 on integer-valued
+    operands."""
     acc = elementwise_matmul_ref(x, w, mul)
     return apply_epilogue((acc * prescale).to(out_dtype), **epi)
+
+
+def int_operand_matmul_fused_ref(x, w, bits: int, mul: Callable, epi: Dict, out_dtype):
+    """The plain version of K2 on the operands themselves: x [M, K] and w
+    [K, N] quantised by :func:`int_operand_quantize`, then
+    :func:`elementwise_matmul_fused_ref` with its prescale."""
+    xi, wi, prescale = int_operand_quantize(x, w, bits)
+    return elementwise_matmul_fused_ref(xi, wi, mul, prescale, epi, out_dtype)
 
 
 def _check(x, w):
@@ -84,7 +123,7 @@ class EpilogueOperands:
     """The per-row prescale and the epilogue ``epi`` of a fused kernel, as
     the C entry points take them (holds the tensors while they run)."""
 
-    pre: torch.Tensor
+    pre: Optional[torch.Tensor]
     gain: Optional[torch.Tensor]
     add: Optional[torch.Tensor]
     coeffs: Optional[torch.Tensor]
@@ -95,22 +134,30 @@ class EpilogueOperands:
     def pointers(self) -> tuple:
         """``pre, gain, add, coeffs, P, mean_scale, eps`` (NULL for absent)."""
         ptr = lambda t: None if t is None else t.data_ptr()
-        return (self.pre.data_ptr(), ptr(self.gain), ptr(self.add), ptr(self.coeffs),
+        return (ptr(self.pre), ptr(self.gain), ptr(self.add), ptr(self.coeffs),
                 self.P, self.mean_scale, self.eps)
+
+
+@functools.lru_cache(maxsize=None)
+def _in_dtype(v: float, dtype) -> float:
+    """``v`` rounded to ``dtype``, as a Python float."""
+    return float(torch.tensor(v, dtype=dtype))
 
 
 def epilogue_operands(M: int, N: int, prescale, epi: Dict, out_dtype, dev) -> EpilogueOperands:
     """Check and lay out a fused kernel's prescale (a scalar or one value
-    per row) and epilogue operands (see :func:`repro_torch.kernels.
-    epilogue.apply_epilogue`)."""
+    per row; None where the kernel computes it) and epilogue operands (see
+    :func:`repro_torch.kernels.epilogue.apply_epilogue`)."""
     if out_dtype not in _DTYPE_CODE:
         raise ValueError(f"out_dtype must be float32 or bfloat16; got {out_dtype}")
     if epi.get("colgain") is not None and epi.get("coladd") is None:
         raise ValueError("epilogue colgain needs coladd")
-    pre = torch.as_tensor(prescale, device=dev).to(torch.float32).reshape(-1)
-    pre = pre.expand(M).contiguous() if pre.numel() == 1 else pre.contiguous()
-    if pre.numel() != M:
-        raise ValueError(f"prescale must have M={M} entries; got {pre.numel()}")
+    pre = None
+    if prescale is not None:
+        pre = torch.as_tensor(prescale, device=dev).to(torch.float32).reshape(-1)
+        pre = pre.expand(M).contiguous() if pre.numel() == 1 else pre.contiguous()
+        if pre.numel() != M:
+            raise ValueError(f"prescale must have M={M} entries; got {pre.numel()}")
     coeffs = epi.get("mean_coeffs")
     P, mean_scale = 0, 1.0
     if coeffs is not None:
@@ -122,27 +169,89 @@ def epilogue_operands(M: int, N: int, prescale, epi: Dict, out_dtype, dev) -> Ep
         gain=_row_operand(epi.get("colgain"), N, out_dtype, dev),
         add=_row_operand(epi.get("coladd"), N, out_dtype, dev),
         coeffs=coeffs, P=P, mean_scale=mean_scale,
-        eps=float(torch.tensor(ROW_EPS, dtype=out_dtype)),  # eps as the epilogue's dtype holds it
+        eps=_in_dtype(ROW_EPS, out_dtype),  # eps as the epilogue's dtype holds it
     )
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+# (device, stream) -> K2's int32 words that are zero between calls: the
+# accumulators, which the finishing pass clears after reading them, and
+# the scale pass's maxima and block count, which its last block clears.
+# So a call launches no memset.  Zero-filled when first made or grown.
+_CLEAR: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _clear_words(dev, stream: int, n: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    buf = _CLEAR.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _CLEAR[key] = torch.zeros((n,), dtype=torch.int32, device=dev)
+    return buf
+
+
+def _launch_clearing(dev, stream: int, kernel: str, entry: str, *args) -> None:
+    try:
+        build.launch(kernel, "vpu_matmul", entry, *args)
+    except RuntimeError:
+        _CLEAR.pop((dev.index, stream), None)  # a pass may not have cleared its words
+        raise
 
 
 def elementwise_matmul_fused_cuda(
     x, w, mul: str, prescale, epi: Dict, out_dtype, drop_bits: int = 0
 ):
-    """K2: K1's contraction with the per-token prescale, the cast to
-    ``out_dtype`` and the MODEL-mode epilogue ``epi`` (see
-    :func:`repro_torch.kernels.epilogue.apply_epilogue`) in one call."""
+    """K2 on integer-valued operands: K1's contraction with the per-token
+    prescale, the cast to ``out_dtype`` and the MODEL-mode epilogue ``epi``
+    (see :func:`repro_torch.kernels.epilogue.apply_epilogue`) in one call:
+    two launches."""
     _check(x, w)
     M, K = x.shape
     N = w.shape[1]
     dev = x.device
     ops = epilogue_operands(M, N, prescale, epi, out_dtype, dev)
-    acc = torch.empty((M, N), dtype=torch.int32, device=dev)
+    stream = _stream(dev)
+    acc = _clear_words(dev, stream, M * N)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    build.launch(
-        f"elementwise_matmul_fused[{mul}]", "vpu_matmul", "vpu_matmul_fused",
+    _launch_clearing(
+        dev, stream, f"elementwise_matmul_fused[{mul},int]", "vpu_matmul_fused",
         _MUL_CODE[mul], _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
         x.data_ptr(), w.data_ptr(), *ops.pointers(), acc.data_ptr(), out.data_ptr(),
-        M, N, K, drop_bits, torch.cuda.current_stream(dev).cuda_stream,
+        M, N, K, drop_bits, stream,
+    )
+    return out
+
+
+def int_operand_matmul_fused_cuda(
+    x, w, bits: int, mul: str, epi: Dict, out_dtype, drop_bits: int = 0
+):
+    """K2 on the operands themselves: x [M, K] and w [K, N] (float32 or
+    bfloat16) quantised to ``bits``-bit integers as
+    :func:`int_operand_quantize` does, contracted through the named
+    multiplier, rescaled, cast to ``out_dtype`` and passed through the
+    epilogue ``epi``: three launches (the scale pass, the contraction and
+    the finishing pass), each weight read from device memory by the first
+    two only."""
+    _check(x, w)
+    if not 1 <= bits <= MAX_BITS:
+        raise ValueError(f"the CUDA kernel takes operands of 1 to {MAX_BITS} bits; got {bits}")
+    M, K = x.shape
+    N = w.shape[1]
+    dev = x.device
+    ops = epilogue_operands(M, N, None, epi, out_dtype, dev)
+    stream = _stream(dev)
+    words = _clear_words(dev, stream, M * N + 2 + M)
+    scales = torch.empty((build.lib("vpu_matmul").vpu_scales_words(M),), dtype=torch.float32,
+                         device=dev)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    levels = (1 << bits) - 1
+    _launch_clearing(
+        dev, stream, f"elementwise_matmul_fused[{mul}]", "vpu_quantize_matmul_fused",
+        _MUL_CODE[mul], _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
+        x.data_ptr(), w.data_ptr(), words[M * N:].data_ptr(), scales.data_ptr(),
+        float(levels), _in_dtype(levels * levels, x.dtype), _in_dtype(OPERAND_EPS, x.dtype),
+        *ops.pointers()[1:], words.data_ptr(), out.data_ptr(), M, N, K, drop_bits, stream,
     )
     return out

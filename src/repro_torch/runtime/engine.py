@@ -43,7 +43,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ApproxConfig, Backend, TrainMode
+from repro_torch.configs.base import ApproxConfig, Backend, TrainMode, resolve_backend
 from repro_torch.core import registry
 from repro_torch.core.approx_linear import ApproxCtx
 from repro_torch.models import decode as D
@@ -86,7 +86,7 @@ def resolve_approx(req: Request, base: ApproxConfig) -> ApproxConfig:
             base, backend=Backend.EXACT, mode=TrainMode.NO_MODEL, site_backends=()
         )
     return dataclasses.replace(
-        base, backend=Backend(req.backend), mode=TrainMode.MODEL,
+        base, backend=resolve_backend(req.backend), mode=TrainMode.MODEL,
         site_backends=req.site_backends,
     )
 
@@ -147,7 +147,8 @@ class _Lane:
         if not a.active:
             return Backend.EXACT.value
         sites = ",".join(f"{p}={b}" for p, b in a.site_backends)
-        return a.backend.value + (f"[{sites}]" if sites else "")
+        name = a.backend.value if isinstance(a.backend, Backend) else str(a.backend)
+        return name + (f"[{sites}]" if sites else "")
 
     def free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if s is None]

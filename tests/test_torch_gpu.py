@@ -30,6 +30,9 @@ from repro_torch.kernels.vpu_matmul import (
     elementwise_matmul_cuda,
     elementwise_matmul_fused_cuda,
     elementwise_matmul_fused_ref,
+    int_operand_matmul_fused_cuda,
+    int_operand_matmul_fused_ref,
+    plain_multiplier,
 )
 
 MULS = {
@@ -96,6 +99,108 @@ def test_k2_bitwise(cuda, mul, M, K, N, dtype, case):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+# (multiplier, bits, perforate) of the backends' defaults
+QUANT_MULS = {"approx_mult": (7, 2), "log_mult": (8, 0)}
+SERVING_SHAPES = [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048), (2048, 151936)]
+
+
+def _edge_operands(cuda, M, K, N, dtype, seed):
+    """bf16 or float32 activations and fan-in-scaled weights as the model
+    gives them, with the edge cases: the last row of x all zero when M > 1
+    (its scale is eps), entries of row 0 at sx / 2, sx / 4 and 3 sx / 4
+    (63.5 or 127.5 and the like after scaling: ties to even), +-0.0, and
+    weights at sw / 2."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=cuda) * 1.5
+    w = torch.randn((K, N), generator=g, device=cuda) * K ** -0.5
+    x[0] = x[0].clamp(-1.9, 1.9)
+    x[0, : min(K, 6)] = torch.tensor([2.0, 1.0, -1.0, 0.5, -1.5, -0.0], device=cuda)[: min(K, 6)]
+    if M > 1:
+        x[M - 1] = 0.0
+    sw = float(w.abs().max())
+    w[0, : min(N, 5)] = torch.tensor([0.5, -0.5, 0.25, -0.0, 0.0], device=cuda)[: min(N, 5)] * sw
+    return g, x.to(dtype), w.to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", SERVING_SHAPES)
+@pytest.mark.parametrize("mul", list(QUANT_MULS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_quantizing_route_serving_shapes(cuda, K, N, mul, dtype):
+    """K2 on the operands themselves at the five qwen2.5-3b sites, M = 1, 4
+    and 9, on edge operands: bitwise to its plain version with the empty
+    epilogue and with chip and correction terms."""
+    bits, perforate = QUANT_MULS[mul]
+    mulf = plain_multiplier(mul, 2 * perforate)
+    for M in (1, 4, 9):
+        g, x, w = _edge_operands(cuda, M, K, N, dtype, M * 7 + K + N)
+        for epi in ({}, _epilogue("all", g, cuda, N, dtype)):
+            got = int_operand_matmul_fused_cuda(x, w, bits, mul, epi, dtype, 2 * perforate)
+            want = int_operand_matmul_fused_ref(x, w, bits, mulf, epi, dtype)
+            assert float(want.float().abs().max()) > 0
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        del x, w
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(4, 70, 45), (9, 130, 129), (1, 7, 5), (4, 2048, 1003),
+                                   (4, 3, 520), (5, 256, 8)])
+@pytest.mark.parametrize("mul", list(QUANT_MULS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["none", "gain_add", "add_only", "correction", "all"])
+def test_k2_quantizing_route_ragged(cuda, M, K, N, mul, dtype, case):
+    """K2 on the operands themselves off the serving shapes (N and K not
+    multiples of the copies: element loads; K below one stage), for every
+    epilogue combination, other operand widths, and called twice (the
+    accumulators and the scale pass's words come back clear)."""
+    g, x, w = _edge_operands(cuda, M, K, N, dtype, M + K + N)
+    epi = _epilogue(case, g, cuda, N, dtype)
+    for bits, perforate in ((QUANT_MULS[mul]), (4, 1), (8, 3)):
+        if mul == "log_mult":
+            perforate = 0
+        want = int_operand_matmul_fused_ref(x, w, bits, plain_multiplier(mul, 2 * perforate),
+                                            epi, dtype)
+        for _ in range(2):
+            got = int_operand_matmul_fused_cuda(x, w, bits, mul, epi, dtype, 2 * perforate)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mul", list(QUANT_MULS))
+def test_k2_three_launches_and_no_memset(cuda, mul):
+    """A call of K2 on the operands makes three launches of vpu_matmul.cu
+    (the scale pass, the contraction, the finishing pass) and no memset or
+    other kernel, call after call with the same bits; the integer entry
+    makes two."""
+    from torch.autograd import DeviceType
+
+    bits, perforate = QUANT_MULS[mul]
+    _, x, w = _edge_operands(cuda, 4, 2048, 11008, torch.bfloat16, 5)
+    first = int_operand_matmul_fused_cuda(x, w, bits, mul, {}, torch.bfloat16, 2 * perforate)
+    for _ in range(3):
+        again = int_operand_matmul_fused_cuda(x, w, bits, mul, {}, torch.bfloat16, 2 * perforate)
+        assert torch.equal(again, first)
+    torch.cuda.synchronize()
+    before = dict(build.LAUNCHES)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        int_operand_matmul_fused_cuda(x, w, bits, mul, {}, torch.bfloat16, 2 * perforate)
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    assert build.LAUNCHES[f"elementwise_matmul_fused[{mul}]"] == \
+        before[f"elementwise_matmul_fused[{mul}]"] + 1
+    assert len(names) == 3 and all("repro_vpu::" in n for n in names), names
+    xi, wi = x.float().round(), w.float().mul(100).round()
+    pre = torch.ones((4,), device=cuda)
+    elementwise_matmul_fused_cuda(xi, wi, mul, pre, {}, torch.float32, 2 * perforate)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        elementwise_matmul_fused_cuda(xi, wi, mul, pre, {}, torch.float32, 2 * perforate)
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    assert len(names) == 2 and all("repro_vpu::" in n for n in names), names
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,G,dh", [(4, 96, 8, 128), (3, 33, 2, 16), (1, 200, 8, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -106,6 +211,25 @@ def test_k3_allclose(cuda, B, S, G, dh, dtype):
     q = torch.randn((B, 2, G, dh), generator=g, device=cuda).to(dtype)
     ck = torch.randn((B, S, 2, dh), generator=g, device=cuda).to(dtype)
     cv = torch.randn((B, S, 2, dh), generator=g, device=cuda).to(dtype)
+    pos = torch.randint(0, S, (B,), generator=g, device=cuda).to(torch.int32)
+    pos[0] = 0
+    got = flash_decode(q, ck, cv, pos)
+    torch.testing.assert_close(got, flash_decode_ref(q, ck, cv, pos), rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("KV,G,dh", [(1, 48, 128), (2, 32, 128), (1, 40, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_large_groups(cuda, KV, G, dh, dtype):
+    """K3 with G * dh above one block's 2048 outputs: 6144 (granite-20b's
+    48 query heads of one KV head, dh 128), 4096, and a group that does
+    not divide into whole tiles (40 heads of dh 64: tiles of 32 and 8):
+    within 1e-4 of its plain version, as at the serving shape."""
+    B, S = 4, 96
+    g = torch.Generator(device=cuda).manual_seed(G * dh + KV)
+    q = torch.randn((B, KV, G, dh), generator=g, device=cuda).to(dtype)
+    ck = torch.randn((B, S, KV, dh), generator=g, device=cuda).to(dtype)
+    cv = torch.randn((B, S, KV, dh), generator=g, device=cuda).to(dtype)
     pos = torch.randint(0, S, (B,), generator=g, device=cuda).to(torch.int32)
     pos[0] = 0
     got = flash_decode(q, ck, cv, pos)

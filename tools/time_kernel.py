@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Time an SC or analog kernel at every serving shape of qwen2.5-3b on the
-card, K5 (``sc_matmul_packed_fused``), K7 (``analog_matmul_fused``) or K4
-(``sc_matmul_packed``, prefill), for the ``repro_torch`` package under
-``--src``, so that two trees can be timed in turns in one run on one card:
+"""Time an emulation kernel at every serving shape of qwen2.5-3b on the
+card, K5 (``sc_matmul_packed_fused``), K7 (``analog_matmul_fused``), K4
+(``sc_matmul_packed``, prefill), K2 (``elementwise_matmul_fused``) or K1
+(``elementwise_matmul``, prefill), both multipliers for K1 and K2, for the
+``repro_torch`` package under ``--src``, so that two trees can be timed in
+turns in one run on one card:
 
   python3 tools/time_kernel.py --kernel k5 --label change
   python3 tools/time_kernel.py --kernel k5 --src parent/src --label parent
@@ -20,7 +22,17 @@ over ``--iters`` calls of the wrapper after one warm-up, no L2 flush
 device time of the kernel's source file per call from a ``torch.profiler``
 trace of as many calls (``device_ms``; a trace with fewer of its kernels
 than calls is taken again, and a third short one fails the run).  For K5
-with tables, ``tables_device_ms`` is one table build.  Prints the card's
+with tables, ``tables_device_ms`` is one table build.  K2 is timed as the
+fused decode path calls it, through the backend's fused emulator on bf16
+activations and fan-in-scaled weights (seed 1): in a tree that quantises
+in plain torch in front of the kernel, the call's device time is that
+prologue's kernels and K2's together, so ``device_ms`` counts every
+kernel of the call and ``launches`` how many there were; ``by_kernel``
+splits the device time by kernel (the first word of its name that
+identifies it).  K1 takes random integer operands (|x| <= 127 for the
+truncated multiplier, 255 for Mitchell's) at M = ``--m`` (default 64; at
+M <= 4 its contraction is the tile configuration that K2 used before it
+took in the quantisation).  Prints the card's
 name and power limit, then one JSON line per shape with the bytes bound
 (each plane, x and the output once, at 3.35 TB/s), the device time's
 share of it and, for K5, the word-build floor: ``K5_INSTR_PER_PAIR``
@@ -114,8 +126,49 @@ def k7_call(K, N, g, dev):
                                             p.adc_range, pre, {}, torch.bfloat16), None
 
 
+def k2_call(K, N, g, dev, mul):
+    """The fused decode projection of a multiplier-error backend, from the
+    operands themselves (any tree)."""
+    from repro_torch.configs.base import ApproxMultParams, LogMultParams
+    from repro_torch.core import backends
+
+    w = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).to(torch.bfloat16)
+    x = torch.randn((DECODE_M, K), generator=g, device=dev).to(torch.bfloat16)
+    if mul == "approx_mult":
+        return lambda: backends._fused_emulate_approx_mult(x, w, ApproxMultParams(), None, {})
+    return lambda: backends._fused_emulate_log_mult(x, w, LogMultParams(), None, {})
+
+
+def k1_call(K, N, g, dev, mul, M):
+    """K1 on integer operands (any tree)."""
+    from repro_torch.kernels.vpu_matmul import elementwise_matmul_cuda
+
+    hi, drop = (127, 4) if mul == "approx_mult" else (255, 0)
+    x = torch.randint(-hi, hi + 1, (M, K), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randint(-hi, hi + 1, (K, N), generator=g, device=dev).to(torch.bfloat16)
+    return lambda: elementwise_matmul_cuda(x, w, mul, drop)
+
+
+# kernel -> (call maker, name key of its kernels in a trace; "" counts every kernel)
 KERNELS = {"k4": (k4_call, "repro_sc::"), "k5": (k5_call, "repro_sc::"),
-           "k7": (k7_call, "repro_analog::")}
+           "k7": (k7_call, "repro_analog::"), "k2": (k2_call, ""), "k1": (k1_call, "repro_vpu::")}
+BY_KERNEL = ("scale_pass", "decode_contract", "contract", "finish", "to_float")
+
+
+def trace_split(fn, iters: int):
+    """Kernels per call, and device ms per call by kernel (the first of
+    BY_KERNEL in its name, else the start of its name), from a profiler
+    trace of ``iters`` calls."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    split = {}
+    for ev in evs:
+        name = next((k for k in BY_KERNEL if k in ev.name), ev.name[:40])
+        split[name] = split.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3 / iters
+    return len(evs) / iters, split
 
 
 def main() -> int:
@@ -124,6 +177,7 @@ def main() -> int:
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1] / "src"))
     ap.add_argument("--label", default="")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--m", type=int, default=PREFILL_M, help="K1's rows")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_kernel: no CUDA device", file=sys.stderr)
@@ -138,8 +192,15 @@ def main() -> int:
     print(card, flush=True)
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(1)
-    for K, N in SHAPES:
-        run, tables = make(K, N, g, dev)
+    two_muls = args.kernel in ("k1", "k2")
+    variants = [("approx_mult",), ("log_mult",)] if two_muls else [()]
+    for (K, N), extra in ((shape, v) for shape in SHAPES for v in variants):
+        if args.kernel == "k2":
+            run, tables = make(K, N, g, dev, *extra), None
+        elif args.kernel == "k1":
+            run, tables = make(K, N, g, dev, *extra, args.m), None
+        else:
+            run, tables = make(K, N, g, dev)
         run()
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -150,11 +211,19 @@ def main() -> int:
         torch.cuda.synchronize()
         ms = start.elapsed_time(end) / args.iters
         dev_ms = device_ms(run, args.iters, key)
-        M = PREFILL_M if args.kernel == "k4" else DECODE_M
-        bound_ms = (2 * M * 2 * K + 2 * 2 * K * N + 2 * M * N) / HBM_BYTES_S * 1e3
+        M = {"k4": PREFILL_M, "k1": args.m}.get(args.kernel, DECODE_M)
+        if args.kernel == "k2":  # x, w and the output, bf16
+            bound_ms = (2 * M * K + 2 * K * N + 2 * M * N) / HBM_BYTES_S * 1e3
+        elif args.kernel == "k1":  # x, w (bf16) and the float32 output
+            bound_ms = (2 * M * K + 2 * K * N + 4 * M * N) / HBM_BYTES_S * 1e3
+        else:  # x [M, 2K] and two weight halves
+            bound_ms = (2 * M * 2 * K + 2 * 2 * K * N + 2 * M * N) / HBM_BYTES_S * 1e3
         row = {"label": args.label, "kernel": args.kernel, "shape": [M, K, N], "ms": ms,
                "device_ms": dev_ms, "bound_ms": bound_ms, "share": bound_ms / dev_ms,
                "card": card}
+        if two_muls:
+            row["mul"] = extra[0]
+            row["launches"], row["by_kernel"] = trace_split(run, args.iters)
         if args.kernel == "k5":
             row["instr_floor_ms"] = K * N * K5_INSTR_PER_PAIR / LANE_INSTR_S * 1e3
             if tables is not None:
