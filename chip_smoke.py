@@ -18,7 +18,10 @@ checkout of the repository.  Phases, each synchronised before the next:
    value-domain code on random bf16 activations and weights.  K5 takes
    the threshold tables of its draws built beforehand, as on the decode
    path, and the tables kernel is held bitwise against its plain version
-   at each K5 site.  Each kernel
+   at each K5 site, as is the draws kernel (threefry, bitwise
+   ``jax.random``) against its plain version on the card and the CPU.  K4
+   and K5 are also held and timed at gate/up with 512-bit streams.  Each
+   kernel
    is timed with CUDA events over calls of its wrapper (``ms``, which the
    host time of a call bounds at small shapes) and by a ``torch.profiler``
    trace of its own kernels (``device_ms``), beside its plain version, its
@@ -26,13 +29,14 @@ checkout of the repository.  Phases, each synchronised before the next:
    call (timed here only; the port never calls it).
 3. Serve a seeded queue through the engine on the qwen2.5-3b smoke config
    on the card and on the CPU, backends exact, log_mult, approx_mult, sc
-   and analog, with the same SC draws on both (made on the CPU).  Exact
-   and multiplier-error requests: greedy tokens equal, logits within
-   1e-3.  Every emulated projection the card ran, recomputed on the CPU
-   by the plain version from the same operands (and draws), is bitwise
-   equal (end to end, a stream bit or ADC level at a decision boundary
-   may flip when an upstream op differs in its last bit, so SC and
-   analog tokens are reported, not required equal).
+   and analog, each device with its own ``init(0)`` (held equal, tensor
+   by tensor) and its own SC draws.  Exact and multiplier-error
+   requests: greedy tokens equal, logits within 1e-3.  Every emulated
+   projection the card ran, recomputed on the CPU by the plain version
+   from the same operands and key path (the CPU drawing its own), is
+   bitwise equal (end to end, a stream bit or ADC level at a decision
+   boundary may flip when an upstream op differs in its last bit, so SC
+   and analog tokens are reported, not required equal).
 4. Serve 10 requests at qwen2.5-3b full width (bf16, random weights from
    the seed; backends exact, log_mult, approx_mult, sc, analog cycled;
    fused decode) and check every kernel of the path was launched; then
@@ -57,7 +61,12 @@ import torch.nn.functional as F
 
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate
 CUDA_CORE_OPS_S = 67e12  # H100 SXM float32 rate outside the tensor cores
-BF16_TENSOR_OPS_S = 989e12  # H100 SXM dense bf16 tensor-core rate
+F64_TENSOR_OPS_S = 67e12  # H100 SXM float64 tensor-core rate (data sheet)
+# 32-bit integer instructions a second: at most half the float32 rate,
+# which counts each FMA as two operations
+INT_OPS_S = CUDA_CORE_OPS_S / 2
+THREEFRY_OPS = 72        # integer ops of one threefry2x32 block (prng.cu)
+SC_LONG_BITS = 512       # the stream length of the K4/K5 rows beyond the old 256-bit cap
 PREFILL_M = 64           # largest prompt bucket of the engine phase
 DECODE_M = 4             # slots of the engine phase
 MAX_SEQ = 96             # engine phase: prompts <= 64 + <= 32 new tokens
@@ -76,6 +85,9 @@ KERNEL_SOURCES = {
     # the threshold tables in front of K4/K5: the stream generation of the
     # reference's ops.sc_matmul_fused (jnp, not a Pallas kernel)
     "sc_tables": ("sc_matmul.cu", "ops.py:177"),
+    # the SC generator draws: the reference's jax.random.uniform (not a
+    # Pallas kernel)
+    "sc_draws": ("prng.cu", "ops.py:97"),
 }
 # the kernels the serving path launches (K2's integer-operand entry and the
 # packed-words entry of K4 are checks off the path)
@@ -294,10 +306,17 @@ def _sc_analog_bound(kname, M, K, N, bits):
         # AND + OR per (row, port, column, word); one op per stream word built
         ops = pol * (2 * M * P * N * W + P * N * W) + M * P * W
         return bound(nbytes, ops)
+    return bound(*_analog_work(kname, M, K, N), F64_TENSOR_OPS_S)
+
+
+def _analog_work(kname, M, K, N):
+    """Bytes and operations of K6 (one polarity) or K7 (both): x and the
+    two bf16 halves read once, the output written once; a multiply-add (2
+    ops) per (row, port, column) per polarity, on the float64 tensor
+    cores (the array sums must be exact)."""
     fused = kname.endswith("fused")
-    nbytes = 2 * M * P + planes + (2 if fused else 4) * M * N
-    # a multiply-add (2 ops) per (row, port, column) per polarity, on bf16 operands
-    return bound(nbytes, (2 if fused else 1) * 2.0 * M * P * N, BF16_TENSOR_OPS_S)
+    nbytes = 2 * M * 2 * K + 2 * K * N * 2 + (2 if fused else 4) * M * N
+    return nbytes, (2 if fused else 1) * 2.0 * M * 2 * K * N
 
 
 def phase_sc_analog(dev, cfg):
@@ -336,6 +355,32 @@ def phase_sc_analog(dev, cfg):
                "device_ms": device_ms(lambda: sc_tables_cuda(ux, uw), 10, "repro_sc::"),
                "plain_ms": cuda_ms(lambda: sc_tables_ref(ux, uw), 1), "bound_ms": b_ms,
                "bound_by": b_by, "library_ms": None}
+        print(f"[kernels] {json.dumps(row)}", flush=True)
+        return row
+
+    def _draws_row(K, N, path, bits):
+        """The draws kernel against its plain version on the card and on
+        the CPU (bitwise) for one K5 site's key path, timed.  Bound: the
+        draws written once; one threefry block per element, and per launch
+        one per folded path word and two for the split, at the integer
+        instruction rate."""
+        from repro_torch.kernels import prng
+
+        run = lambda: ops.sc_draws(path, 2 * K, bits, dev)
+        plain = lambda: prng.sc_draws_ref(path, 2 * K, bits, dev)
+        got, want, cpu = run(), plain(), prng.sc_draws_ref(path, 2 * K, bits)
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, want, cpu):
+            if not (torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    and torch.equal(a.cpu().view(torch.int32), c.view(torch.int32))):
+                raise AssertionError(f"sc_draws {path} K={K}: not bitwise equal to its plain "
+                                     f"version (card and CPU)")
+        n = (2 * K + 1) * bits
+        b_ms, b_by = bound(4 * n, (n + len(path) + 1) * THREEFRY_OPS, INT_OPS_S)
+        row = {"name": "sc_draws", "shape": [2 * K, bits], "max_abs_err": 0.0,
+               "ms": cuda_ms(run, 10), "device_ms": device_ms(run, 10, "repro_prng::"),
+               "plain_ms": cuda_ms(plain, 3), "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": None}
         print(f"[kernels] {json.dumps(row)}", flush=True)
         return row
 
@@ -405,8 +450,9 @@ def phase_sc_analog(dev, cfg):
                     raise AssertionError("sc_matmul_packed on pre-packed words disagrees")
             if fused and kname.startswith("sc"):
                 row = _tables_row(K, N, ux, uw, sc_p.bits)
+                drow = _draws_row(K, N, (1, K, N, M), sc_p.bits)
                 if (K, N) == rep:
-                    summary["sc_tables"] = row
+                    summary["sc_tables"], summary["sc_draws"] = row, drow
             iters = 3 if M * 2 * K * N > 2e9 else 10
             ms = cuda_ms(lambda: call(kern, {}), iters)
             dev_ms = device_ms(lambda: call(kern, {}), iters,
@@ -416,9 +462,32 @@ def phase_sc_analog(dev, cfg):
             row = {"name": kname, "shape": [M, K, N], "max_abs_err": err, "ms": ms,
                    "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                    "bound_by": b_by, "library_ms": None}
+            if kname.startswith("analog"):  # both terms of the bound
+                nbytes, n_ops = _analog_work(kname, M, K, N)
+                row["bound_terms_ms"] = {"bytes": nbytes / HBM_BYTES_S * 1e3,
+                                         "operations": n_ops / F64_TENSOR_OPS_S * 1e3}
             print(f"[kernels] {json.dumps(row)}", flush=True)
             if (K, N) == rep:
                 summary[kname] = row
+            if (K, N) == rep and kname.startswith("sc"):
+                # the same kernel on 512-bit streams (16 words a stream):
+                # a check printed as a row of its own, off the serving path
+                # (so not in the kernels line, which counts its launches)
+                long = SC_LONG_BITS
+                ldraws = SCDraws(*ops.sc_draws((2, K, N, M), 2 * K, long, dev))
+                largs = (long, ldraws) if fused else (long, tuple(ldraws))
+                lcall = lambda f, e: (f(xcat, halves, *largs, pre, e, bf) if fused
+                                      else f(xcat, halves, *largs))
+                got, want = lcall(kern, {}), lcall(plain, {})
+                _hold(f"{kname}@{long}", (M, K, N), got, want)
+                b_ms, b_by = _sc_analog_bound(kname, M, K, N, long)
+                row = {"name": f"{kname}@{long}", "shape": [M, K, N], "max_abs_err": 0.0,
+                       "ms": cuda_ms(lambda: lcall(kern, {}), 3),
+                       "device_ms": device_ms(lambda: lcall(kern, {}), 3, "repro_sc::"),
+                       "plain_ms": cuda_ms(lambda: lcall(plain, {}), 1), "bound_ms": b_ms,
+                       "bound_by": b_by, "library_ms": None}
+                print(f"[kernels] {json.dumps(row)}", flush=True)
+                del ldraws, got, want
             del x, xp, xn, wp, wn, xcat, halves
             torch.cuda.empty_cache()
         del w
@@ -457,32 +526,35 @@ def _record_projections(names):
 
 
 def phase_reference(dev):
-    """The smoke config served on the card and on the CPU from the same
-    weights and the same SC draws (made on the CPU).  Exact and
-    multiplier-error requests: greedy tokens equal, logits within 1e-3
-    (float32; cuBLAS and the CPU sum in other orders, and the card runs
-    the kernels).  SC and analog: each projection the card ran equals the
-    plain version's on the CPU from the same operands and draws, bit for
-    bit."""
+    """The smoke config served on the card and on the CPU, each device
+    with its own weights (``init``) and its own SC draws (the kernel on the
+    card, the plain threefry on the CPU).  The weights: equal, tensor by
+    tensor.  Exact and multiplier-error requests: greedy tokens equal,
+    logits within 1e-3 (float32; cuBLAS and the CPU sum in other orders,
+    and the card runs the kernels).  SC and analog: each projection the
+    card ran equals the plain version's on the CPU from the same operands
+    and key path (the CPU drawing its own), bit for bit."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core import registry
-    from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.runtime.engine import Engine, synthetic_requests
-
-    def cpu_draws(path, n_ports, n_bits, device):
-        return tuple(t.to(device) for t in ops.sc_draws(path, n_ports, n_bits, "cpu"))
 
     cfg = get_smoke_config("qwen2.5-3b")
     model = build_model(cfg)
     p_cpu = model.init(0, device="cpu")
-    p_dev = model.init(0, device="cpu").to(dev)
+    p_dev = model.init(0, device=dev)
+    cpu_named = dict(p_cpu.named_parameters())
+    for name, t in p_dev.named_parameters():
+        if t.device.type != "cuda" or not torch.equal(t.cpu(), cpu_named[name]):
+            raise AssertionError(f"init(0) on the card != on the CPU at {name}")
+    print(f"[reference] init(0) on the card == CPU: {len(cpu_named)} tensors bitwise",
+          flush=True)
     queue = synthetic_requests(10, cfg.vocab_size, seed=0, prompt_lens=(3, 20),
                                gen_lens=(4, 10), backends=BACKENDS)
     res, seen = {}, []
     for name, params, device in (("cpu", p_cpu, "cpu"), ("cuda", p_dev, dev)):
         eng = Engine(model, params, n_slots=2, max_seq=32, fused=True, collect_logits=True,
-                     device=device, draws=cpu_draws)
+                     device=device)
         if name == "cuda":
             seen, restore = _record_projections(EMULATED)
         try:
@@ -627,6 +699,7 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
+            **({"bound_terms_ms": row["bound_terms_ms"]} if "bound_terms_ms" in row else {}),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi(), flush=True)

@@ -6,8 +6,8 @@ kernels K6/K7 and their plain versions (port of
 ``csrc/analog_matmul.cu``.  They take the unipolar activation plane ``x``
 [M, 2K] and the weight plane as its two [K, N] halves ``(top, bottom)``,
 read in place in their own dtype (no concatenation, no float32 copy).
-Each array of ``array_size`` ports sums in float64 and rounds once to
-float32, so for the emulator's operands (bf16 values on 8-bit grids) the
+Each array of ``array_size`` ports sums in float64 (on the float64
+tensor cores) and rounds once to float32, so for the emulator's operands (bf16 values on 8-bit grids) the
 kernels are bitwise equal to their plain versions,
 :func:`repro_torch.kernels.ref.analog_matmul_ref` (K6) and
 :func:`analog_matmul_fused_ref` below (K7).
@@ -61,13 +61,14 @@ def _check(x, w: Tuple):
         raise ValueError("x and the halves must be contiguous (row-major)")
 
 
-def _array_scratch(M: int, N: int, K: int, array_size: int, dev):
-    """K6's per-array partial-sum scratch as its plan asks for it (empty
-    when the arrays are not split across blocks)."""
-    n = build.lib("analog_matmul").analog_scratch_floats(M, N, K, array_size)
+def _array_scratch(M: int, N: int, K: int, array_size: int, adc_bits: int, dev):
+    """K6's scratch as the kernel lays it out: one pass's ADC codes (a
+    bounded share of rows and arrays, whatever M) and its rows of x as
+    float64."""
+    n = build.lib("analog_matmul").analog_scratch_bytes(M, N, K, array_size, adc_bits)
     if n < 0:
-        raise ValueError(f"array scratch for {M}x{2 * K}x{N} exceeds 2^31 floats")
-    return torch.empty((max(n, 1),), dtype=torch.float32, device=dev)
+        raise ValueError(f"ADC code scratch for 64 rows of {2 * K}x{N} exceeds 2^31 bytes")
+    return torch.empty((max(n, 1),), dtype=torch.uint8, device=dev)
 
 
 def _fused_scratch(M: int, N: int, K: int, array_size: int, adc_bits: int, dev):
@@ -81,12 +82,15 @@ def _fused_scratch(M: int, N: int, K: int, array_size: int, adc_bits: int, dev):
 
 
 def analog_matmul_cuda(x, w: Tuple, array_size: int, adc_bits: int, adc_range: float):
-    """K6: x [M, 2K] against the plane [top; bottom] -> [M, N] float32."""
+    """K6: x [M, 2K] against the plane [top; bottom] -> [M, N] float32:
+    three launches a pass (one pass at the serving shapes), x widened to
+    float64, the contraction and the pass that adds each output's ADC
+    levels in array order."""
     _check(x, w)
     top, bottom = w
     K, N = top.shape
     M = x.shape[0]
-    q = _array_scratch(M, N, K, array_size, x.device)
+    q = _array_scratch(M, N, K, array_size, adc_bits, x.device)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     build.launch(
         "analog_matmul", "analog_matmul", "analog_matmul",

@@ -70,9 +70,13 @@ SIGNATURES = {
             _I, _I, _I, _I, _P,
         ),
     },
+    "prng": {
+        # path, n_path, ux, uw, ports, bits, stream
+        "sc_draws": (_P, _I, _P, _P, _I, _I, _P),
+    },
     "analog_matmul": {
-        # M, N, K, array_size
-        "analog_scratch_floats": (_I, _I, _I, _I),
+        # M, N, K, array_size, adc_bits
+        "analog_scratch_bytes": (_I, _I, _I, _I, _I),
         # M, N, K, array_size, adc_bits
         "analog_fused_scratch_bytes": (_I, _I, _I, _I, _I),
         # in_bf16, x, wa, wb, q, out, M, N, K, array_size, adc_bits, adc_range, stream
@@ -100,6 +104,8 @@ LAUNCHES: Dict[str, int] = {
     "flash_decode": 0,
     "sc_matmul_packed": 0,
     "sc_matmul_packed_fused": 0,
+    # the generator draws of an SC key path (threefry), in front of the tables
+    "sc_draws": 0,
     # the threshold tables of a set of SC draws, in front of K4 and K5
     "sc_tables": 0,
     "analog_matmul": 0,

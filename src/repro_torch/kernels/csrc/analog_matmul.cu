@@ -1,5 +1,5 @@
 // Analog-array contractions with ADC partial-sum quantisation on Hopper:
-// kernels K6 (CUDA cores) and K7 (float64 tensor cores).
+// kernels K6 and K7, both on the float64 tensor cores.
 //
 // Replaces the Pallas TPU kernels repro/kernels/analog_matmul.py:
 //   analog_matmul        (_kernel, _adc_quantize) -> analog_matmul()
@@ -73,12 +73,39 @@
 //     first piece in float64 scratch and adds it back at the top's end.
 //     Array ends inside a 4-row step split it into masked passes.
 //
-// K6 (prefill, M = 64) is bound by its float64 FMAs on the CUDA cores:
-// each thread owns a TM x TN tile of outputs and keeps its partial sums in
-// float64 registers through one array, then quantises them and adds them to
-// float32 accumulators.  When the output tiles alone cannot fill the SMs the
-// arrays are split across blocks that store each array's quantised partial
-// sums; a second pass adds them in array order.
+// K6 (the analog prefill matmul, M = 64 at serving).  What bounds it on
+// this card: the float64 products, M x 2K x N multiply-adds (5.77 GFLOP at
+// 64 x 4096 x 11008, 86 us at the 67 TFLOP/s of the float64 tensor cores),
+// well above the bytes of the two weight halves (27 us).  The exactness
+// argument above leaves no cheaper unit: a float32 sum inside an array
+// would move ADC decisions.  What the design does:
+//   * Float64 mma as in K7, with the roles turned and k = 8 (m16n8k8, a
+//     Hopper shape): A = x (M = 64 fills four 16-row tiles), B = the plane
+//     (8 rows x 8 columns), so a warp's 4 x 4 tiles of 16 x 8 outputs take
+//     16 mma per step of 8 plane rows from 16 float64 loads of x and two
+//     8-byte loads of 4 weights.
+//   * A block of 4 warps takes 128 columns and 64 rows and streams the
+//     plane rows of its arrays through a ring of 3 stages of 32 rows (16-byte
+//     cp.async, swizzled as in K7, one block barrier a stage).  x is widened
+//     to float64 once per call (a pass of 2 M K elements), so its stage
+//     feeds the mma as copied.  Measured at 64 x 2048 x 11008 (H100 80GB
+//     HBM3, 700 W, tools/time_kernel.py --kernel k6, in turns): the
+//     contraction took 0.227 ms with x converted in the block each stage
+//     (16-row stages, two barriers), 0.195 with x widened once, 0.184 with
+//     32-row stages, 0.178 with m16n8k8 in place of m16n8k4.
+//   * Blocks along z take disjoint whole arrays, as many per block as fill
+//     whole waves of the card; a block stores each finished array's ADC
+//     level as a byte code (wider above 8 ADC bits), [C][M][N], and a
+//     finishing pass (sum_levels) adds each output's levels in array order:
+//     three launches a call (two where 16-byte copies do not fit the
+//     shapes), no memset.  The codes of a call are bounded, whatever M: a
+//     call runs in passes over rows of x (multiples of 64) and over arrays
+//     that hold at most CODE_BYTES of codes each (one pass at every serving
+//     shape at M = 64); a later array pass adds its levels onto the float32
+//     sums of the earlier ones, the same additions in the same order, so the
+//     result does not depend on the passes.  Plane rows are found by row, so an
+//     array may straddle the two halves; array ends inside a step of 8
+//     rows split it into masked passes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -111,162 +138,6 @@ __device__ __forceinline__ float adc_value(float t, Adc a) {
 // repro/kernels/analog_matmul.py::_adc_quantize, one rounding per op.
 __device__ __forceinline__ float adc_quantize(float psum, Adc a) {
   return adc_value(adc_level(psum, a), a);
-}
-
-// ---------------------------------------------------------------------------
-// K6
-// ---------------------------------------------------------------------------
-
-// Row gk of the plane [top; bottom] (K rows each), element n.
-template <typename T>
-__device__ __forceinline__ float plane(const T* top, const T* bottom, int gk, int K, int N,
-                                       int n) {
-  return gk < K ? repro_epi::load<T>(top, (size_t)gk * N + n)
-                : repro_epi::load<T>(bottom, (size_t)(gk - K) * N + n);
-}
-
-// Blocks along z take arrays [z * per_split, (z + 1) * per_split).  With one
-// split, the float32 sums go to sum; with more, each array's quantised
-// partial sums go to q[c], [M, N] each.
-template <typename T, int BM, int BN, int BK, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-    contract(const T* __restrict__ x, const T* __restrict__ wa, const T* __restrict__ wb,
-             float* __restrict__ sum, float* __restrict__ q, int M, int N, int K, int A,
-             int per_split, Adc adc) {
-  constexpr int TX = BN / TN;
-  constexpr int NT = (BM / TM) * TX;
-  __shared__ float xs[BK][BM + 1];
-  __shared__ float ws[BK][BN];
-
-  const int P = 2 * K;
-  const int C = (P + A - 1) / A;
-  const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int c_begin = blockIdx.z * per_split;
-  const int c_end = min(C, c_begin + per_split);
-  const bool split = gridDim.z > 1;
-  const size_t MN = (size_t)M * N;
-
-  float ap[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) ap[i][j] = 0.0f;
-
-  for (int c = c_begin; c < c_end; ++c) {
-    const int kb = c * A, ke = min(P, kb + A);
-    double sp[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) sp[i][j] = 0.0;
-
-    for (int k0 = kb; k0 < ke; k0 += BK) {
-      for (int i = tid; i < BK * BM; i += NT) {
-        const int kk = i / BM, mm = i % BM;
-        const int gk = k0 + kk, gm = m0 + mm;
-        xs[kk][mm] = (gk < ke && gm < M) ? repro_epi::load<T>(x, (size_t)gm * P + gk) : 0.0f;
-      }
-      for (int i = tid; i < BK * BN; i += NT) {
-        const int kk = i / BN, nn = i % BN;
-        const int gk = k0 + kk, gn = n0 + nn;
-        ws[kk][nn] = (gk < ke && gn < N) ? plane(wa, wb, gk, K, N, gn) : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < BK; ++kk) {
-        double xv[TM];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) xv[i] = (double)xs[kk][ty * TM + i];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          const double wv = (double)ws[kk][tx + j * TX];
-#pragma unroll
-          for (int i = 0; i < TM; ++i) sp[i][j] = fma(xv[i], wv, sp[i][j]);
-        }
-      }
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int gm = m0 + ty * TM + i;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int gn = n0 + tx + j * TX;
-        const float qp = adc_quantize(__double2float_rn(sp[i][j]), adc);
-        if (split) {
-          if (gm < M && gn < N) q[(size_t)c * MN + (size_t)gm * N + gn] = qp;
-        } else {
-          ap[i][j] = __fadd_rn(ap[i][j], qp);
-        }
-      }
-    }
-  }
-
-  if (split) return;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty * TM + i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx + j * TX;
-      if (gn < N) sum[(size_t)gm * N + gn] = ap[i][j];
-    }
-  }
-}
-
-// sum[i] = q[0][i] + q[1][i] + ... in array order, in float32.
-__global__ void sum_arrays(const float* __restrict__ q, int C, size_t n, float* __restrict__ sum) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.0f;
-    for (int c = 0; c < C; ++c) s = __fadd_rn(s, q[(size_t)c * n + i]);
-    sum[i] = s;
-  }
-}
-
-// Tile shapes and the array split: both the launch and the scratch size the
-// caller allocates are derived here.
-struct Plan {
-  int bm, bn, gx, gy, per_split, splits, C;
-};
-
-Plan plan(int M, int N, int K, int A) {
-  Plan p;
-  p.bm = M <= 4 ? 4 : 64;
-  p.bn = 128;
-  p.gx = (N + p.bn - 1) / p.bn;
-  p.gy = (M + p.bm - 1) / p.bm;
-  p.C = (2 * K + A - 1) / A;
-  const int tiles = p.gx * p.gy;
-  const int want = (2 * repro_epi::sm_count() + tiles - 1) / tiles;
-  const int parts = std::min(p.C, std::max(1, want));
-  p.per_split = (p.C + parts - 1) / parts;
-  p.splits = (p.C + p.per_split - 1) / p.per_split;
-  return p;
-}
-
-template <typename T>
-void run(const void* x, const void* wa, const void* wb, float* sum, float* q, int M, int N,
-         int K, int A, Adc adc, cudaStream_t st) {
-  const Plan p = plan(M, N, K, A);
-  const size_t MN = (size_t)M * N;
-  float* qs = p.splits > 1 ? q : nullptr;
-  const T* xt = static_cast<const T*>(x);
-  const T* a = static_cast<const T*>(wa);
-  const T* b = static_cast<const T*>(wb);
-  const dim3 grid(p.gx, p.gy, p.splits);
-  if (p.bm == 4)
-    contract<T, 4, 128, 16, 4, 1><<<grid, 128, 0, st>>>(xt, a, b, sum, qs, M, N, K, A,
-                                                        p.per_split, adc);
-  else
-    contract<T, 64, 128, 16, 4, 4><<<grid, 512, 0, st>>>(xt, a, b, sum, qs, M, N, K, A,
-                                                         p.per_split, adc);
-  if (p.splits > 1)
-    sum_arrays<<<repro_epi::grid_for(MN, 256), 256, 0, st>>>(qs, p.C, MN, sum);
 }
 
 // ---------------------------------------------------------------------------
@@ -769,31 +640,452 @@ Adc make_adc(int adc_bits, float adc_range) {
   return Adc{adc_range, (float)((1 << adc_bits) - 1)};
 }
 
+// ---------------------------------------------------------------------------
+// K6
+// ---------------------------------------------------------------------------
+
+namespace k6 {
+constexpr int BM = 64;          // activation rows of a block: four 16-row mma tiles
+constexpr int BN = 128;         // columns of a block
+constexpr int WARPS = 4;        // warps of a block, adjacent 32-column tiles
+constexpr int WN = BN / WARPS;  // columns of a warp: four 8-column mma tiles
+constexpr int R = 32;           // plane rows per pipeline stage
+constexpr int STAGES = 3;       // depth of the block's ring
+constexpr int NT = WARPS * 32;  // threads of a block
+constexpr int XS = R + 4;       // row stride of a stage's float64 x: A loads without conflicts
+constexpr int BLOCKS_PER_SM = 2;
+// Bytes of ADC codes that one pass may hold: a call runs the rows and arrays
+// in passes of at most this many bytes of codes, so its scratch does not
+// grow with M (and stays below 2^31 at any M).
+constexpr size_t CODE_BYTES = size_t(1) << 29;
+static_assert(WN == 32, "a lane's B operand is 4 adjacent columns of its warp's 32");
+}  // namespace k6
+
+// d += a b over one 16 x 8 x 8 float64 tile: a0, a1 hold A rows g and
+// g + 8 at k = t, a2, a3 the same rows at k = t + 4; b0, b1 hold B rows t
+// and t + 4 at column g; d as in dmma.
+__device__ __forceinline__ void dmma8(double (&d)[4], double a0, double a1, double a2,
+                                      double a3, double b0, double b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(a2), "d"(a3), "d"(b0), "d"(b1));
+}
+
+// One stage of the block's ring: plane rows s0 .. s0 + R - 1 for the
+// block's columns (16-byte chunks swizzled as in K7), and x at those ports
+// as float64 (widened once per call, so the stage feeds the mma as it is).
+template <typename T>
+struct alignas(16) Stage6 {
+  T w[k6::R][k6::BN];          // [row][column of the block]
+  double x[k6::BM][k6::XS];    // [activation row][port], padded rows
+};
+
+template <typename T>
+constexpr int k6_smem() {
+  return k6::STAGES * (int)sizeof(Stage6<T>);
+}
+
+// x64[i] = x[i] as float64: the activations widened once per call (M x 2K).
+template <typename T>
+__global__ void widen(const T* __restrict__ x, double* __restrict__ x64, size_t n) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    x64[i] = to_f64(x[i]);
+}
+
+// Plane rows [s0, s0 + R) of the block's range [.., r1) into a stage, every
+// thread taking its share: with VEC, 16-byte cp.async copies (zero-filled
+// past the range, past M and past N; x from its float64 copy x64); without,
+// element loads (x from x itself).  Row gk of the plane is wa's row gk for
+// gk < K, else wb's row gk - K.
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_stage6(Stage6<T>& sg, const T* __restrict__ x,
+                                            const double* __restrict__ x64,
+                                            const T* __restrict__ wa, const T* __restrict__ wb,
+                                            int s0, int r1, int m0, int n0, int M, int N, int K,
+                                            int tid) {
+  using namespace k6;
+  constexpr int CE = 16 / sizeof(T);  // elements per copy
+  const size_t P = 2 * (size_t)K;
+  if constexpr (VEC) {
+    constexpr int RC = BN / CE;  // copies per plane row
+    for (int i = tid; i < R * RC; i += NT) {
+      const int rr = i / RC, j = i % RC;
+      const int gk = s0 + rr, n = n0 + j * CE;
+      const bool ok = gk < r1 && n < N;
+      const T* src = ok ? (gk < K ? wa + (size_t)gk * N : wb + (size_t)(gk - K) * N) + n : wa;
+      cp_async16(&sg.w[rr][swz(j, rr) * CE], src, ok ? 16 : 0);
+    }
+    constexpr int XC = R / 2;  // copies per activation row, 2 doubles each
+    for (int i = tid; i < BM * XC; i += NT) {
+      const int m = i / XC, c = i % XC;
+      const int gk = s0 + 2 * c;
+      const int valid = m0 + m < M ? max(0, min(2, r1 - gk)) : 0;
+      const double* src = valid ? x64 + (size_t)(m0 + m) * P + gk : x64;
+      cp_async16(&sg.x[m][2 * c], src, valid * (int)sizeof(double));
+    }
+  } else {
+    for (int i = tid; i < R * BN; i += NT) {
+      const int rr = i / BN, j = i % BN;
+      const int gk = s0 + rr, n = n0 + j;
+      sg.w[rr][swz(j / CE, rr) * CE + j % CE] =
+          gk < r1 && n < N ? (gk < K ? wa[(size_t)gk * N + n] : wb[(size_t)(gk - K) * N + n])
+                           : T(0.0f);
+    }
+    for (int i = tid; i < BM * R; i += NT) {
+      const int m = i / R, rr = i % R;
+      sg.x[m][rr] = s0 + rr < r1 && m0 + m < M ? to_f64(x[(size_t)(m0 + m) * P + s0 + rr]) : 0.0;
+    }
+  }
+}
+
+// The lane's B operand of the four column tiles: columns col .. col + 3 of
+// the block in stage row rr, as float64.
+__device__ __forceinline__ void load_b(const __nv_bfloat16* row, int col, int rr, double (&b)[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(row + swz(col / 8, rr) * 8 + col % 8);
+  b[0] = (double)__uint_as_float(v.x << 16);
+  b[1] = (double)__uint_as_float(v.x & 0xffff0000u);
+  b[2] = (double)__uint_as_float(v.y << 16);
+  b[3] = (double)__uint_as_float(v.y & 0xffff0000u);
+}
+__device__ __forceinline__ void load_b(const float* row, int col, int rr, double (&b)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(row + swz(col / 4, rr) * 4);
+  b[0] = v.x, b[1] = v.y, b[2] = v.z, b[3] = v.w;
+}
+
+// The ADC codes of the finished array c from the lane's accumulators to
+// q [C][M][N], then zero them.  acc[i][j] holds rows m0 + 16 i + g and
+// m0 + 16 i + g + 8 at columns n + j and n + 4 + j (n: the lane's first
+// column), so a lane stores 8 adjacent codes per row: one 8-byte store
+// where the row allows.
+template <typename Code>
+__device__ __forceinline__ void flush6(Code* __restrict__ q, double (&acc)[4][4][4], int c,
+                                       int m0, int g, int n, int M, int N, Adc adc) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + 16 * i + g + 8 * e;
+      uint32_t v[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j] = (uint32_t)adc_level(__double2float_rn(acc[i][j][2 * e]), adc);
+        v[4 + j] = (uint32_t)adc_level(__double2float_rn(acc[i][j][2 * e + 1]), adc);
+        acc[i][j][2 * e] = acc[i][j][2 * e + 1] = 0.0;
+      }
+      if (m >= M) continue;
+      Code* row = q + ((size_t)c * M + m) * N;
+      if (sizeof(Code) == 1 && N % 8 == 0 && n + 8 <= N) {
+        *reinterpret_cast<uint2*>(row + n) =
+            make_uint2(v[0] | v[1] << 8 | v[2] << 16 | v[3] << 24,
+                       v[4] | v[5] << 8 | v[6] << 16 | v[7] << 24);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (n + k < N) row[n + k] = (Code)v[k];
+      }
+    }
+}
+
+// Block (x, y, z): columns [128 x, 128 x + 128), activation rows
+// [64 y, 64 y + 64) and the whole arrays [cf + z apb, cf + z apb + apb) of
+// the pass's arrays [cf, cf + cn) of the 2K ports, streamed R rows a stage
+// through the block's ring; array c's codes go to q's slot c - cf.  Warp v takes
+// columns 32 v .. 32 v + 31.  A step of 8 plane rows r .. r + 7 is 16 mma:
+// A = x at rows 16 i .. 16 i + 15, ports r .. r + 7 (i < 4), B = the plane's
+// rows r .. r + 7 at columns 4 g + j of the warp's (g the B column, j < 4).
+// An array that ends inside a step splits it into masked passes.
+template <typename T, typename Code, bool VEC>
+__global__ void __launch_bounds__(k6::NT, k6::BLOCKS_PER_SM)
+    prefill_contract(const T* __restrict__ x, const double* __restrict__ x64,
+                     const T* __restrict__ wa, const T* __restrict__ wb, Code* __restrict__ q,
+                     int M, int N, int K, int A, int cf, int cn, int apb, Adc adc) {
+  using namespace k6;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Stage6<T>* ring = reinterpret_cast<Stage6<T>*>(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int t = lane & 3, g = lane >> 2;  // see dmma
+  const int P = 2 * K;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int c0 = cf + blockIdx.z * apb;
+  const int r0 = c0 * A, r1 = min(P, min(c0 + apb, cf + cn) * A);
+  const int n_st = (r1 - r0 + R - 1) / R;
+  const int col = warp * WN + 4 * g;     // the lane's B columns in the block
+  const int n = n0 + warp * WN + 8 * t;  // the lane's first accumulator column
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_st)
+      load_stage6<T, VEC>(ring[s], x, x64, wa, wb, r0 + s * R, r1, m0, n0, M, N, K, tid);
+    cp_async_commit();
+  }
+
+  double acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.0;
+  int c = c0;                         // the current array
+  int c_end = min(r1, (c0 + 1) * A);  // the row after its last
+
+  for (int st = 0; st < n_st; ++st) {
+    const int slot = st % STAGES;
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage st has landed; every warp is done with stage st - 1
+    const int nx = st + STAGES - 1;
+    if (nx < n_st)
+      load_stage6<T, VEC>(ring[nx % STAGES], x, x64, wa, wb, r0 + nx * R, r1, m0, n0, M, N, K,
+                          tid);
+    cp_async_commit();
+
+    const int s0 = r0 + st * R;
+    const int rows = min(R, r1 - s0);
+    for (int rr = 0; rr < rows; rr += 8) {
+      const int r = s0 + rr;
+      double b0[4], b1[4];
+      load_b(ring[slot].w[rr + t], col, rr + t, b0);
+      load_b(ring[slot].w[rr + t + 4], col, rr + t + 4, b1);
+      const double* xr = &ring[slot].x[g][rr + t];
+      const int end8 = min(8, r1 - r);
+      if (end8 == 8 && c_end - r >= 8) {  // the current array takes the whole step
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const double a0 = xr[16 * i * XS], a1 = xr[(16 * i + 8) * XS];
+          const double a2 = xr[16 * i * XS + 4], a3 = xr[(16 * i + 8) * XS + 4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dmma8(acc[i][j], a0, a1, a2, a3, b0[j], b1[j]);
+        }
+        if (c_end == r + 8) {
+          flush6(q, acc, c - cf, m0, g, n, M, N, adc);
+          ++c;
+          c_end = min(r1, c_end + A);
+        }
+        continue;
+      }
+      int lo = 0;
+      while (lo < end8) {  // passes split at array ends
+        const int hi = min(end8, c_end - r);
+        const bool k0 = t >= lo && t < hi, k1 = t + 4 >= lo && t + 4 < hi;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const double a0 = k0 ? xr[16 * i * XS] : 0.0, a1 = k0 ? xr[(16 * i + 8) * XS] : 0.0;
+          const double a2 = k1 ? xr[16 * i * XS + 4] : 0.0;
+          const double a3 = k1 ? xr[(16 * i + 8) * XS + 4] : 0.0;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            dmma8(acc[i][j], a0, a1, a2, a3, k0 ? b0[j] : 0.0, k1 ? b1[j] : 0.0);
+        }
+        if (r + hi == c_end) {
+          flush6(q, acc, c - cf, m0, g, n, M, N, adc);
+          ++c;
+          c_end = min(r1, c_end + A);
+        }
+        lo = hi;
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// K6's finishing pass: a block takes 128 outputs, stages their ADC codes in
+// shared memory a chunk of arrays at a time (16-byte loads), and each
+// thread adds its output's levels in array order, onto the sum of the
+// earlier arrays' pass when carry is set (the same float32 additions in
+// the same order as one pass over all arrays).
+template <typename Code>
+__global__ void __launch_bounds__(128)
+    sum_levels(const Code* __restrict__ q, Adc adc, float* __restrict__ out, size_t MN, int C,
+               bool carry) {
+  constexpr int TB = 128, CC = 64 / sizeof(Code);  // outputs, arrays per chunk
+  constexpr int CPR = TB * sizeof(Code) / 16;      // 16-byte loads per array row
+  __shared__ __align__(16) Code codes[CC][TB];
+  __shared__ float level[256];  // the value of each level (uint8 codes)
+  const size_t i0 = (size_t)blockIdx.x * TB;
+  const int tid = threadIdx.x;
+  constexpr bool table = sizeof(Code) == 1;
+  if (table)
+    for (int v = tid; v <= (int)adc.levels; v += TB) level[v] = adc_value((float)v, adc);
+  const bool vec = MN % 16 == 0 && i0 + TB <= MN;
+  float s = carry && i0 + tid < MN ? out[i0 + tid] : 0.0f;
+  for (int a0 = 0; a0 < C; a0 += CC) {
+    const int cc = min(CC, C - a0);
+    __syncthreads();  // the previous chunk is consumed
+    if (vec) {
+      for (int k = tid; k < cc * CPR; k += TB)
+        reinterpret_cast<uint4*>(codes[k / CPR])[k % CPR] =
+            reinterpret_cast<const uint4*>(q + (size_t)(a0 + k / CPR) * MN + i0)[k % CPR];
+    } else {
+      for (int k = tid; k < cc * TB; k += TB) {
+        const int r = k / TB, o = k % TB;
+        codes[r][o] = i0 + o < MN ? q[(size_t)(a0 + r) * MN + i0 + o] : Code(0);
+      }
+    }
+    __syncthreads();
+    for (int r = 0; r < cc; ++r) {
+      const Code v = codes[r][tid];
+      s = __fadd_rn(s, table ? level[v] : adc_value((float)v, adc));
+    }
+  }
+  if (i0 + tid < MN) out[i0 + tid] = s;
+}
+
+// Arrays per block (the grid's z) for a pass of C arrays: the number that
+// keeps the most block slots of the card busy over whole waves, the larger
+// on a tie.
+struct PrefillPlan {
+  int apb, gx, gy, gz, C;
+};
+
+PrefillPlan prefill_plan(int M, int N, int C) {
+  using namespace k6;
+  PrefillPlan p;
+  p.C = C;
+  p.gx = (N + BN - 1) / BN;
+  p.gy = (M + BM - 1) / BM;
+  p.apb = 1;
+  p.gz = p.C;
+  const long long slots = (long long)repro_epi::sm_count() * BLOCKS_PER_SM;
+  double best = -1.0;
+  for (int apb = p.C; apb >= 1; --apb) {
+    const int gz = (p.C + apb - 1) / apb;
+    const long long waves = ((long long)p.gx * p.gy * gz + slots - 1) / slots;
+    const double use = (double)p.gx * p.gy * p.C / ((double)waves * slots * apb);
+    if (use > best + 1e-9) {
+      best = use;
+      p.apb = apb;
+      p.gz = gz;
+    }
+  }
+  return p;
+}
+
+template <typename T, typename Code, bool VEC>
+void launch_prefill(const T* x, const double* x64, const T* wa, const T* wb, Code* q, int M,
+                    int N, int K, int A, int cf, const PrefillPlan& p, Adc adc, cudaStream_t st) {
+  constexpr int smem = k6_smem<T>();
+  static bool attr = [] {
+    cudaFuncSetAttribute(prefill_contract<T, Code, VEC>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaFuncSetAttribute(prefill_contract<T, Code, VEC>,
+                         cudaFuncAttributePreferredSharedMemoryCarveout,
+                         cudaSharedmemCarveoutMaxShared);
+    return true;
+  }();
+  (void)attr;
+  prefill_contract<T, Code, VEC><<<dim3(p.gx, p.gy, p.gz), k6::NT, smem, st>>>(
+      x, x64, wa, wb, q, M, N, K, A, cf, p.C, p.apb, adc);
+}
+
+// K6's passes at a shape: rows of x a pass (a multiple of 64 unless it is
+// all of M) and arrays a pass, so that a pass's codes [arrays][rows][N]
+// stay within CODE_BYTES where 64 rows of one array allow it; then the
+// scratch: those codes, then (16-byte aligned) the pass's rows of x as
+// float64 [rows][2K].
+struct Passes {
+  int rows, arrays, C;
+  size_t codes, total;
+};
+
+template <typename Code>
+Passes prefill_passes(int M, int N, int K, int A) {
+  using namespace k6;
+  using std::max;
+  using std::min;
+  Passes p;
+  p.C = (2 * K + A - 1) / A;
+  const size_t row_codes = (size_t)max(p.C, 1) * N * sizeof(Code);
+  const size_t row_x = 2 * (size_t)K * sizeof(double);
+  const size_t fit = CODE_BYTES / max<size_t>(row_codes + row_x, 1) / BM * BM;
+  p.rows = (int)min<size_t>(M, max<size_t>(BM, fit));
+  const size_t array_codes = max<size_t>((size_t)p.rows * N * sizeof(Code), 1);
+  p.arrays = (int)min<size_t>(max(p.C, 1), max<size_t>(1, CODE_BYTES / array_codes));
+  p.codes = up16((size_t)p.arrays * p.rows * N * sizeof(Code));
+  p.total = p.codes + (size_t)p.rows * row_x;
+  return p;
+}
+
+// Rows [m0, m0 + rows) of x, then arrays [cf, cf + arrays) of the plane a
+// pass: widen those rows, contract, add the levels onto out (carrying the
+// sum of the arrays before cf).
+template <typename T, typename Code>
+void prefill(const void* x, const void* wa, const void* wb, unsigned char* scratch, float* out,
+             int M, int N, int K, int A, Adc adc, cudaStream_t st) {
+  constexpr int CE = 16 / sizeof(T);
+  const Passes ps = prefill_passes<Code>(M, N, K, A);
+  if ((size_t)M * N == 0) return;
+  Code* q = reinterpret_cast<Code*>(scratch);
+  double* x64 = reinterpret_cast<double*>(scratch + ps.codes);
+  // 16-byte copies need 16-byte rows, stage starts and pointers
+  const bool vec = N % CE == 0 && (2 * K) % CE == 0 && A % CE == 0 && aligned16(x) &&
+                   aligned16(wa) && aligned16(wb);
+  const T* a = static_cast<const T*>(wa);
+  const T* b = static_cast<const T*>(wb);
+  for (int m0 = 0; m0 < M; m0 += ps.rows) {
+    const int mb = min(ps.rows, M - m0);
+    const T* xm = static_cast<const T*>(x) + (size_t)m0 * 2 * K;
+    float* om = out + (size_t)m0 * N;
+    const size_t MN = (size_t)mb * N;
+    if (ps.C == 0) {
+      sum_levels<Code><<<(unsigned)((MN + 127) / 128), 128, 0, st>>>(q, adc, om, MN, 0, false);
+      continue;
+    }
+    if (vec) {
+      const size_t n = 2 * (size_t)mb * K;
+      widen<T><<<repro_epi::grid_for(n, 256), 256, 0, st>>>(xm, x64, n);
+    }
+    for (int cf = 0; cf < ps.C; cf += ps.arrays) {
+      const PrefillPlan p = prefill_plan(mb, N, min(ps.arrays, ps.C - cf));
+      if (vec)
+        launch_prefill<T, Code, true>(xm, x64, a, b, q, mb, N, K, A, cf, p, adc, st);
+      else
+        launch_prefill<T, Code, false>(xm, nullptr, a, b, q, mb, N, K, A, cf, p, adc, st);
+      sum_levels<Code><<<(unsigned)((MN + 127) / 128), 128, 0, st>>>(q, adc, om, MN, p.C,
+                                                                      cf > 0);
+    }
+  }
+}
+
+template <typename Code>
+void prefill_any(int in_bf16, const void* x, const void* wa, const void* wb, void* scratch,
+                 float* out, int M, int N, int K, int A, Adc adc, cudaStream_t st) {
+  unsigned char* s = static_cast<unsigned char*>(scratch);
+  if (in_bf16)
+    prefill<__nv_bfloat16, Code>(x, wa, wb, s, out, M, N, K, A, adc, st);
+  else
+    prefill<float, Code>(x, wa, wb, s, out, M, N, K, A, adc, st);
+}
+
 }  // namespace
 }  // namespace repro_analog
 
 using namespace repro_analog;
 
-// Floats of the array scratch q that K6 needs at this shape; 0 when the
-// arrays are not split across blocks.
-extern "C" int analog_scratch_floats(int M, int N, int K, int array_size) {
-  const Plan p = plan(M, N, K, array_size);
-  if (p.splits == 1) return 0;
-  const size_t n = (size_t)p.C * M * N;
+// Bytes of K6's scratch at this shape (see Passes): a pass's ADC codes,
+// uint8 when adc_bits <= 8, else uint32, then its rows of x as float64; -1
+// past 2^31 (only where 64 rows of x or of one array's codes pass it).
+extern "C" int analog_scratch_bytes(int M, int N, int K, int array_size, int adc_bits) {
+  const size_t n = adc_bits <= 8 ? prefill_passes<uint8_t>(M, N, K, array_size).total
+                                 : prefill_passes<uint32_t>(M, N, K, array_size).total;
   return n > 0x7fffffff ? -1 : (int)n;
 }
 
-// K6: out[M,N] (float32) = sum over arrays of adc(x[m, array] . [wa; wb][array, n]).
-// x [M, 2K], wa, wb [K, N]: float32 or bfloat16.  q: analog_scratch_floats().
-extern "C" int analog_matmul(int in_bf16, const void* x, const void* wa, const void* wb, float* q,
+// K6: out[M,N] (float32) = sum over arrays of adc(x[m, array] . [wa; wb][array, n]),
+// added in array order.  x [M, 2K], wa, wb [K, N]: float32 or bfloat16.
+// q: analog_scratch_bytes(), written before it is read (no memset).  Three
+// launches a pass (two when the shapes or pointers do not allow 16-byte
+// copies); one pass up to CODE_BYTES of codes (all serving shapes at M = 64).
+extern "C" int analog_matmul(int in_bf16, const void* x, const void* wa, const void* wb, void* q,
                              float* out, int M, int N, int K, int array_size, int adc_bits,
                              float adc_range, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Adc adc = make_adc(adc_bits, adc_range);
-  if (in_bf16)
-    run<__nv_bfloat16>(x, wa, wb, out, q, M, N, K, array_size, adc, st);
+  if (adc_bits <= 8)
+    prefill_any<uint8_t>(in_bf16, x, wa, wb, q, out, M, N, K, array_size, adc, st);
   else
-    run<float>(x, wa, wb, out, q, M, N, K, array_size, adc, st);
+    prefill_any<uint32_t>(in_bf16, x, wa, wb, q, out, M, N, K, array_size, adc, st);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,113 @@
+// The generator sequences of one SC projection on Hopper, bitwise those of
+// jax.random (threefry2x32, partitionable layout).
+//
+// Replaces the stream generation in front of the Pallas TPU kernels,
+// repro/kernels/ops.py::sc_matmul (jax.random.uniform, not a Pallas
+// kernel):
+//   ux = uniform(kx, (1, bits)), uw = uniform(kw, (2K, bits)),
+//   (kx, kw) = split(key), key = fold_in(...fold_in(PRNGKey(seed), d1)..., dn)
+// -> sc_draws(), one launch per key path.
+//
+// What is computed (the plain version, repro_torch/kernels/prng.py, says
+// it in PyTorch): element i of a draw is the threefry2x32 block of its key
+// on the counter (i >> 32, i mod 2^32); of the two output words b0 ^ b1
+// keeps its top 23 bits as the mantissa of a float in [1, 2), minus 1 (an
+// exact subtraction).  PRNGKey(seed) is (0, seed mod 2^32), fold_in(key,
+// d) the block of key on (0, d), split(key)[j] the block on (0, j).
+//
+// The key path comes as a few int32 words in device memory, not as
+// launch arguments: every thread derives the key itself (one block per
+// folded word, and one for each half of the split it needs), so a
+// captured graph can change the path in place between replays.  The work
+// is elementwise and bound by the 20 rounds of integer adds, rotates and
+// xors of each block; a thread takes PER_THREAD elements, so the key's
+// blocks are paid once per 8 elements: for a decode site's path (4 blocks
+// of key) 2.9 and 5.7 us at 4096 x 32 and 22016 x 32 draws, against 3.0
+// and 11.3 us with one element a thread (H100 80GB HBM3, 700 W,
+// tools/time_kernel.py --kernel prng).
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// Named so a profiler trace attributes the kernel to this file.
+namespace repro_prng {
+namespace {
+
+struct Key {
+  uint32_t a, b;
+};
+
+__device__ __forceinline__ uint32_t rotl(uint32_t v, int r) { return __funnelshift_l(v, v, r); }
+
+// The 20-round threefry2x32 block of key k on the counter (x0, x1).
+__device__ __forceinline__ Key threefry(Key k, uint32_t x0, uint32_t x1) {
+  const uint32_t ks[3] = {k.a, k.b, k.a ^ k.b ^ 0x1BD11BDAu};
+  constexpr int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = rotl(x1, rot[i % 2][j]) ^ x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
+  }
+  return Key{x0, x1};
+}
+
+__device__ __forceinline__ float uniform_at(Key k, uint64_t i) {
+  const Key r = threefry(k, (uint32_t)(i >> 32), (uint32_t)i);
+  return __uint_as_float(((r.a ^ r.b) >> 9) | 0x3F800000u) - 1.0f;
+}
+
+constexpr int THREADS = 256;
+constexpr int PER_THREAD = 8;
+
+// Element i of the draws, i < bits: ux[i]; else uw[i - bits].  A block
+// takes THREADS * PER_THREAD consecutive elements, a thread every
+// THREADS-th of them (coalesced stores).
+__global__ void __launch_bounds__(THREADS)
+    draws(const int32_t* __restrict__ path, int n_path, float* __restrict__ ux,
+          float* __restrict__ uw, int bits, long long n_w) {
+  const long long first = blockIdx.x * (long long)(THREADS * PER_THREAD) + threadIdx.x;
+  const long long n = bits + n_w;
+  if (first >= n) return;
+  Key k{0u, (uint32_t)path[0]};
+  for (int j = 1; j < n_path; ++j) k = threefry(k, 0u, (uint32_t)path[j]);
+  const long long last = min(n - 1, first + (long long)(PER_THREAD - 1) * THREADS);
+  const Key kx = first < bits ? threefry(k, 0u, 0u) : Key{0u, 0u};
+  const Key kw = last >= bits ? threefry(k, 0u, 1u) : Key{0u, 0u};
+#pragma unroll
+  for (int e = 0; e < PER_THREAD; ++e) {
+    const long long i = first + (long long)e * THREADS;
+    if (i >= n) break;
+    if (i < bits)
+      ux[i] = uniform_at(kx, (uint64_t)i);
+    else
+      uw[i - bits] = uniform_at(kw, (uint64_t)(i - bits));
+  }
+}
+
+}  // namespace
+}  // namespace repro_prng
+
+using namespace repro_prng;
+
+// ux [1, bits] and uw [ports, bits], float32 in [0, 1), the draws of the
+// key path path[0 .. n_path) (seed mod 2^32, then the folded uint32s).
+extern "C" int sc_draws(const int32_t* path, int n_path, float* ux, float* uw, int ports,
+                        int bits, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long n_w = (long long)ports * bits, n = bits + n_w;
+  if (n == 0) return 0;
+  constexpr long long per_block = THREADS * PER_THREAD;
+  draws<<<(unsigned)((n + per_block - 1) / per_block), THREADS, 0, st>>>(path, n_path, ux, uw,
+                                                                          bits, n_w);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* prng_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

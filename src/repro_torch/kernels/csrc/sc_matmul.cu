@@ -98,7 +98,7 @@
 namespace repro_sc {
 namespace {
 
-constexpr int MAX_WORDS = 8;  // streams of at most 256 bits
+constexpr int CHUNK_WORDS = 8;  // activation table rows pack_x holds at once: 256 bits
 constexpr int KEYS = 64;      // thresholds of a table row (two sequences)
 constexpr int BUCKETS = 256;  // value buckets of a table row, [b / 256, (b + 1) / 256)
 static_assert(BUCKETS % 64 == 0, "whole bucket words for each lane");
@@ -246,18 +246,24 @@ __device__ __forceinline__ void row_words(const uint32_t* row, const float (&v)[
 // ---------------------------------------------------------------------------
 
 // Activation streams: xbits[i, w] for the MP probabilities of x, against
-// the activation rows (K, w) of the tables.
+// the activation rows (K, w) of the tables, staged in shared memory
+// CHUNK_WORDS rows at a time (any stream length: a word depends only on
+// its own row).
 template <typename T>
 __global__ void pack_x(const T* __restrict__ x, const uint32_t* __restrict__ tab, int K, int W,
                        uint32_t* __restrict__ xbits, size_t MP) {
-  __shared__ __align__(16) uint32_t t[MAX_WORDS][ROW];
-  for (int i = threadIdx.x; i < W * ROW; i += blockDim.x)
-    t[i / ROW][i % ROW] = tab[table_row(K, i / ROW, K) + i % ROW];
-  __syncthreads();
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < MP;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const float p = repro_epi::load<T>(x, i);
-    for (int w = 0; w < W; ++w) xbits[i * W + w] = stream_words(t[w], p).x;
+  __shared__ __align__(16) uint32_t t[CHUNK_WORDS][ROW];
+  for (int w0 = 0; w0 < W; w0 += CHUNK_WORDS) {
+    const int nw = min(CHUNK_WORDS, W - w0);
+    __syncthreads();  // the previous chunk's rows are consumed
+    for (int i = threadIdx.x; i < nw * ROW; i += blockDim.x)
+      t[i / ROW][i % ROW] = tab[table_row(K, w0 + i / ROW, K) + i % ROW];
+    __syncthreads();
+    for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < MP;
+         i += (size_t)gridDim.x * blockDim.x) {
+      const float p = repro_epi::load<T>(x, i);
+      for (int w = 0; w < nw; ++w) xbits[i * W + w0 + w] = stream_words(t[w], p).x;
+    }
   }
 }
 

@@ -9,7 +9,6 @@ handles (:data:`KERNELS`).
 """
 from __future__ import annotations
 
-import hashlib
 from typing import Tuple
 
 import torch
@@ -18,6 +17,7 @@ from repro_torch.kernels import analog_matmul as _analog
 from repro_torch.kernels import approx_mult as _amult
 from repro_torch.kernels import flash_decode as _flash
 from repro_torch.kernels import log_matmul as _log
+from repro_torch.kernels import prng as _prng
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import sc_matmul as _sc
 from repro_torch.kernels.vpu_matmul import (
@@ -47,17 +47,20 @@ def sc_draws(key: Tuple[int, ...], n_ports: int, n_bits: int, device):
 
     ``key`` is the projection's key path (a root seed, then the values
     folded in: engine tick, layer, site; see :class:`repro_torch.core.
-    approx_linear.ApproxCtx`).  The reference draws these with
-    ``jax.random.uniform`` from the same path of ``fold_in``s; the port
-    draws them from a ``torch.Generator`` on ``device`` seeded by a hash of
-    the path, so equal paths give equal draws, run after run.
-    """
-    digest = hashlib.blake2b(repr(tuple(int(k) for k in key)).encode(), digest_size=8)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int.from_bytes(digest.digest(), "little") & 0x7FFF_FFFF_FFFF_FFFF)
-    ux = torch.rand((1, n_bits), generator=gen, dtype=torch.float32, device=device)
-    uw = torch.rand((n_ports, n_bits), generator=gen, dtype=torch.float32, device=device)
-    return ux, uw
+    approx_linear.ApproxCtx`).  The draws are the reference's bit for bit
+    (``PRNGKey``, the ``fold_in``s, ``split``, ``jax.random.uniform``;
+    :mod:`repro_torch.kernels.prng`), on the CPU by the plain version and
+    on the card by one launch of ``csrc/prng.cu``."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        # pinned, so the copy is queued on the stream and the host does not wait
+        words = torch.tensor(_prng.path_words(key), dtype=torch.int32, pin_memory=True)
+        words = words.to(device, non_blocking=True)
+        return _prng.sc_draws_cuda(words, n_ports, n_bits)
+    if device.type == "cpu":
+        return _prng.sc_draws_ref(key, n_ports, n_bits)
+    raise ValueError(f"SC draws are made on the CPU (plain version) or a CUDA device "
+                     f"(kernel); got {device}")
 
 
 def sc_matmul(xp, w, n_bits: int, draws):

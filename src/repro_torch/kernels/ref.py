@@ -10,8 +10,8 @@ kernels against, so each bounds its scratch memory at full width.
 Stochastic computing.  Packed stream words are int32 tensors holding the
 bits of the reference's uint32 words (bit j of word w is stream bit
 32 w + j).  The generator draws are arguments: ``repro.kernels.ref.
-sc_matmul_ref`` draws them itself with ``jax.random``, which the port
-does not reproduce.
+sc_matmul_ref`` draws them itself with ``jax.random``; the port makes
+the same draws, bit for bit, in ``repro_torch.kernels.prng``.
 
 Analog arrays.  Each array's partial sum is a float64 product rounded
 once to float32.  For the emulator's operands (bf16 values on 8-bit

@@ -32,7 +32,6 @@ from repro_torch.kernels.ref import sc_matmul_ref
 from repro_torch.kernels.vpu_matmul import epilogue_operands
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MAX_BITS = 256  # the kernel's table of one activation sequence holds 8 words
 KEYS = 64       # thresholds of one table row: word w of sequences k and k + K
 BUCKETS = 256   # value buckets of one table row
 MASKS_AT = KEYS                        # word of a row's first mask pair
@@ -154,8 +153,8 @@ def _check(x, w: Tuple, n_bits: int, ux, uw):
     if not (x.dtype == top.dtype == bottom.dtype) or x.dtype not in _DTYPE_CODE:
         raise ValueError(f"x and the halves must share float32 or bfloat16; got "
                          f"{x.dtype}, {top.dtype}, {bottom.dtype}")
-    if n_bits % 32 or not 0 < n_bits <= MAX_BITS:
-        raise ValueError(f"n_bits must be a multiple of 32 in [32, {MAX_BITS}]; got {n_bits}")
+    if n_bits % 32 or n_bits <= 0:
+        raise ValueError(f"n_bits must be a positive multiple of 32; got {n_bits}")
     if ux.numel() != n_bits or tuple(uw.shape) != (2 * K, n_bits):
         raise ValueError(f"need ux [1, {n_bits}] and uw [{2 * K}, {n_bits}]; got "
                          f"{tuple(ux.shape)}, {tuple(uw.shape)}")
@@ -177,9 +176,9 @@ def sc_tables_cuda(ux, uw):
         raise ValueError(f"CUDA kernel needs the draws on one CUDA device; got "
                          f"{ux.device}, {uw.device}")
     n_bits = uw.shape[-1] if uw.dim() == 2 else -1
-    if n_bits % 32 or not 0 < n_bits <= MAX_BITS or uw.shape[0] % 2 or ux.numel() != n_bits:
-        raise ValueError(f"need ux [1, bits] and uw [2K, bits], bits a multiple of 32 up to "
-                         f"{MAX_BITS}; got {tuple(ux.shape)}, {tuple(uw.shape)}")
+    if n_bits % 32 or n_bits <= 0 or uw.shape[0] % 2 or ux.numel() != n_bits:
+        raise ValueError(f"need ux [1, bits] and uw [2K, bits], bits a positive multiple of "
+                         f"32; got {tuple(ux.shape)}, {tuple(uw.shape)}")
     if ux.dtype != torch.float32 or uw.dtype != torch.float32:
         raise ValueError("the generator draws must be float32")
     if not (ux.is_contiguous() and uw.is_contiguous()):

@@ -1,11 +1,14 @@
-"""Where one emulated decode step spends its time on the card.
+"""Where one emulated decode step (or prefill) spends its time on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_decode --arch qwen2.5-3b \\
       --backends exact,log_mult,approx_mult,sc,analog --out profile.json
 
 For each backend, the engine's batch of ``SLOTS`` rows decodes through
 the fused path (``serve_step`` with ``fused`` and flash attention) at
-position ``POS``, random weights from ``--seed``.  After ``WARMUP`` steps
+position ``POS``, random weights from ``--seed``.  With
+``--prefill-tokens N[,N...]`` a step is instead one prefill of a request
+of N tokens (``apply_model`` in MODEL mode with per-layer keys, as the
+engine's prefill runs it), for each N.  After ``WARMUP`` steps
 it times ``STEPS`` steps on the host clock (each ending in
 ``torch.cuda.synchronize``), then traces as many with ``torch.profiler``
 and sums the device time of every kernel.  It prints, per backend: wall
@@ -16,7 +19,9 @@ kernels (K1-K7 and their finishing passes), PyTorch's elementwise and
 reduction kernels (the plain-torch value-domain code: scales, planes,
 quantisation), GEMMs, and the rest.
 
-Needs a CUDA device; it does not fall back to the CPU.
+Needs a CUDA device; it does not fall back to the CPU.  To time another
+tree's package with this report, run this file by its path with that
+tree's ``src`` as ``PYTHONPATH``.
 """
 from __future__ import annotations
 
@@ -41,7 +46,7 @@ GROUPS = (  # (group, substrings of a kernel's name), first match wins
     ("K3 flash_decode.cu", ("flash_decode",)),
     ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "gemv", "nvjet")),
     ("PyTorch reductions", ("reduce",)),
-    ("PyTorch random", ("distribution",)),  # torch.rand of the SC draws
+    ("SC draws prng.cu", ("repro_prng::",)),
     ("PyTorch elementwise", ("elementwise", "unrolled", "vectorized")),
     ("memset and copies", ("memset", "memcpy")),
 )
@@ -55,22 +60,33 @@ def _group(name: str) -> str:
     return "other"
 
 
-def profile_backend(params, cfg, backend: str, seed: int) -> dict:
-    from torch.autograd import DeviceType
-
+def _steps(params, cfg, backend: str, seed: int, prefill_tokens: int):
+    """The step to profile: one fused decode step of the engine's batch,
+    or one prefill of ``prefill_tokens`` tokens."""
     from repro_torch.configs.base import ApproxConfig, Backend, TrainMode
     from repro_torch.core.approx_linear import ApproxCtx
     from repro_torch.models import decode as D
+    from repro_torch.models.transformer import apply_model
 
     dev = params.device
-    cache = D.init_cache(cfg, SLOTS, MAX_SEQ, dev)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    for key in ("k", "v"):
-        cache[key].normal_(generator=gen)
-    tokens = torch.randint(0, cfg.vocab_size, (SLOTS, 1), generator=gen, device=dev)
-    pos = torch.full((SLOTS,), POS, dtype=torch.int32, device=dev)
+    gen = torch.Generator().manual_seed(seed)  # on the CPU: the same inputs on every device
     approx = ApproxConfig(backend=Backend(backend), mode=TrainMode.MODEL)
     tick = [0]
+    if prefill_tokens:
+        tokens = torch.randint(0, cfg.vocab_size, (1, prefill_tokens), generator=gen).to(dev)
+
+        @torch.no_grad()
+        def prefill():
+            tick[0] += 1
+            return apply_model(params, {"tokens": tokens}, cfg, approx=approx,
+                               rng=(seed, tick[0])).logits
+        return prefill
+
+    cache = D.init_cache(cfg, SLOTS, MAX_SEQ, dev)
+    for key in ("k", "v"):
+        cache[key].copy_(torch.randn(cache[key].shape, generator=gen, dtype=cache[key].dtype))
+    tokens = torch.randint(0, cfg.vocab_size, (SLOTS, 1), generator=gen).to(dev)
+    pos = torch.full((SLOTS,), POS, dtype=torch.int32, device=dev)
 
     def step():
         tick[0] += 1
@@ -79,7 +95,13 @@ def profile_backend(params, cfg, backend: str, seed: int) -> dict:
             ctx = ApproxCtx(cfg=approx, fused=True, rng=(seed, tick[0]))
         logits, _ = D.serve_step(params, cache, tokens, pos, cfg, ctx=ctx, flash=True)
         return logits
+    return step
 
+
+def profile_backend(params, cfg, backend: str, seed: int, prefill_tokens: int = 0) -> dict:
+    from torch.autograd import DeviceType
+
+    step = _steps(params, cfg, backend, seed, prefill_tokens)
     for _ in range(WARMUP):
         step()
     torch.cuda.synchronize()
@@ -130,6 +152,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--arch", default="qwen2.5-3b")
     ap.add_argument("--backends", default="exact,log_mult,approx_mult,sc,analog")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--prefill-tokens", default="",
+                    help="profile one prefill of each of these many tokens (comma-separated) "
+                         "instead of a decode step")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -139,21 +164,25 @@ def main(argv=None) -> dict:
     from repro_torch.kernels import build
     from repro_torch.models import build_model
 
+    prefill = [int(n) for n in args.prefill_tokens.split(",") if n]
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build_all()
     cfg = get_config(args.arch)
+    t0 = time.perf_counter()
     params = build_model(cfg).init(args.seed, device="cuda")
+    torch.cuda.synchronize()
     report = {
         "arch": cfg.name,
+        "init_s": time.perf_counter() - t0,  # weights drawn on the CPU, moved to the card
         "device": torch.cuda.get_device_name(0),
-        "slots": SLOTS,
-        "pos": POS,
+        **({} if prefill else {"slots": SLOTS, "pos": POS}),
         "card": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60,
         ).stdout.strip().splitlines()[0],
-        "backends": [profile_backend(params, cfg, b, args.seed)
-                     for b in args.backends.split(",")],
+        "backends": [{**({"prefill_tokens": n} if n else {}),
+                      **profile_backend(params, cfg, b, args.seed, n)}
+                     for b in args.backends.split(",") for n in prefill or [0]],
     }
     print(json.dumps(report, indent=1))
     if args.out:

@@ -63,11 +63,18 @@ def rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def _normal(gen: torch.Generator, shape, scale, dtype, device):
+    """Fan-in-scaled normals drawn from the CPU generator ``gen`` and scaled
+    on the CPU, then moved to ``device``: the same weights on every device
+    (the card's generator and libm would give others)."""
+    return (torch.randn(shape, generator=gen, dtype=dtype) * scale).to(device)
+
+
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> Attention:
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
 
     def normal(shape, scale):
-        return torch.randn(shape, generator=gen, dtype=dtype, device=device) * scale
+        return _normal(gen, shape, scale, dtype, device)
 
     p = dict(
         wq=normal((d, h * dh), d ** -0.5),
@@ -172,7 +179,7 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> MLP:
     d, f = cfg.d_model, cfg.d_ff
 
     def normal(shape, scale):
-        return torch.randn(shape, generator=gen, dtype=dtype, device=device) * scale
+        return _normal(gen, shape, scale, dtype, device)
 
     return MLP(
         w_gate=normal((d, f), d ** -0.5),

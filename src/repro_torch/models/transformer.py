@@ -67,16 +67,18 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 def init_params(cfg: ModelConfig, seed: int, device) -> Transformer:
     """Random weights from ``seed`` (normal, scaled by fan-in; norms one,
-    biases zero), made on ``device`` in ``cfg.param_dtype``."""
+    biases zero) in ``cfg.param_dtype`` on ``device``: drawn from a CPU
+    generator, tensor by tensor, and moved there, so one seed gives the
+    same weights on every device."""
     check_dense(cfg)
     dtype = getattr(torch, cfg.param_dtype)
     device = torch.device(device)
-    gen = torch.Generator(device=device)
+    gen = torch.Generator()
     gen.manual_seed(seed)
     V, D = padded_vocab(cfg), cfg.d_model
 
     def normal(shape, scale):
-        return torch.randn(shape, generator=gen, dtype=dtype, device=device) * scale
+        return L._normal(gen, shape, scale, dtype, device)
 
     embed = normal((V, D), D ** -0.5)
     lm_head = None if cfg.tie_embeddings else normal((D, V), D ** -0.5)

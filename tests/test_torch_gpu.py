@@ -513,3 +513,205 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         sc_matmul_fused_cuda(x, halves, 32, (u[:1], u.double()), 1.0, {}, torch.float32)
     with pytest.raises(ValueError):  # halves of different dtypes
         analog_matmul_cuda(x, (halves[0], halves[1].to(torch.bfloat16)), 128, 4, 4.0)
+
+
+# ---------------------------------------------------------------------------
+# The SC draws (threefry, csrc/prng.cu), the weights, 512-bit streams, K6
+# ---------------------------------------------------------------------------
+
+DRAW_PATHS = [(0, 1, 1583461021), (3, 17, 5, 2147483647), (0, 2, 2**20, 1999999999),
+              (2**31 - 1, 2**32 - 1), (7,)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", DRAW_PATHS, ids=[str(i) for i in range(len(DRAW_PATHS))])
+@pytest.mark.parametrize("n_ports,n_bits", [(4096, 32), (22016, 32), (9, 512), (129, 64), (1, 0)])
+def test_prng_kernel_bitwise(cuda, path, n_ports, n_bits):
+    """The draws kernel against the plain threefry on the CPU: bitwise,
+    one launch per key path, through ``ops.sc_draws`` and the wrapper."""
+    from repro_torch.kernels import ops, prng
+
+    before = build.LAUNCHES["sc_draws"]
+    ux, uw = ops.sc_draws(path, n_ports, n_bits, cuda)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["sc_draws"] == before + 1
+    wx, ww = prng.sc_draws_ref(path, n_ports, n_bits)
+    assert ux.device.type == "cuda" and tuple(uw.shape) == (n_ports, n_bits)
+    assert torch.equal(ux.cpu().view(torch.int32), wx.view(torch.int32))
+    assert torch.equal(uw.cpu().view(torch.int32), ww.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_prng_kernel_reads_the_path_from_the_card(cuda):
+    """The kernel reads its key path from the int32 tensor at launch: the
+    words changed in place give the new path's draws."""
+    from repro_torch.kernels import prng
+
+    words = torch.tensor(prng.path_words((0, 1, 77)), dtype=torch.int32, device=cuda)
+    a = prng.sc_draws_cuda(words, 64, 32)
+    words.copy_(torch.tensor(prng.path_words((0, 2, 77)), dtype=torch.int32))
+    b = prng.sc_draws_cuda(words, 64, 32)
+    for got, path in ((a, (0, 1, 77)), (b, (0, 2, 77))):
+        want = prng.sc_draws_ref(path, 64, 32)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    with pytest.raises(ValueError):  # words on the CPU
+        prng.sc_draws_cuda(words.cpu(), 64, 32)
+
+
+@pytest.mark.gpu
+def test_init_params_on_the_card_equal_the_cpu(cuda):
+    """One seed gives the same weights on the card as on the CPU, tensor
+    by tensor, bit for bit, and they live on the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+
+    model = build_model(get_smoke_config("qwen2.5-3b"))
+    on_card, on_cpu = model.init(0, device=cuda), model.init(0, device="cpu")
+    a, b = dict(on_card.named_parameters()), dict(on_cpu.named_parameters())
+    assert sorted(a) == sorted(b) and len(a) > 0
+    for name, t in a.items():
+        assert t.device.type == "cuda", name
+        assert torch.equal(t.cpu(), b[name]), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(4, 2048, 256), (64, 300, 129), (1, 7, 5), (9, 130, 1000)])
+@pytest.mark.parametrize("bits", [288, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_k5_and_tables_beyond_256_bits(cuda, M, K, N, bits, dtype):
+    """Streams of 288 (9 words: one past a chunk of 8) and 512 bits: the
+    tables, K4 (from the planes and on pre-packed words) and K5 with chip
+    terms, each bitwise to its plain version."""
+    g, x, w, ux, uw = _sc_operands(cuda, M, K, N, dtype, bits, M + K + N + bits)
+    draws = SCDraws(ux, uw)
+    assert torch.equal(draws.tables, sc_tables_ref(ux, uw))
+    torch.testing.assert_close(sc_matmul_cuda(x, w, bits, draws),
+                               ref.sc_matmul_ref(x, w, bits, ux, uw), rtol=0, atol=0)
+    xbits = ref.sc_pack_streams(x, ux)
+    wbits = ref.sc_pack_streams(torch.cat(w), uw[:, None, :])
+    # divided by a tensor: a CUDA tensor divided by a Python number is a
+    # product with its reciprocal, not the correctly rounded quotient
+    torch.testing.assert_close(sc_matmul_words_cuda(xbits, wbits, bits),
+                               ref.sc_matmul_packed_chunked_ref(xbits, wbits)
+                               / torch.tensor(float(bits), device=cuda), rtol=0, atol=0)
+    pre = torch.rand((M, 1), generator=g, device=cuda)
+    epi = _epilogue("all", g, cuda, N, dtype)
+    got = sc_matmul_fused_cuda(x, w, bits, draws, pre, epi, dtype)
+    torch.testing.assert_close(got, sc_matmul_fused_ref(x, w, bits, draws, pre, epi, dtype),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", [(2048, 11008), (2048, 151936)])
+def test_k4_k5_serving_shapes_at_512_bits(cuda, K, N):
+    """K4 (M = 64) and K5 (M = 4) at serving sites with 512-bit streams
+    on the emulator's operands and the port's draws: bitwise."""
+    from repro_torch.configs.base import SCParams
+    from repro_torch.core.backends import _stream_planes
+    from repro_torch.kernels.ops import sc_draws
+
+    g = torch.Generator(device=cuda).manual_seed(K + N)
+    w = (torch.randn((K, N), generator=g, device=cuda) * K ** -0.5).to(torch.bfloat16)
+    p = SCParams(bits=512)
+    draws = SCDraws(*sc_draws((5, K, N), 2 * K, 512, cuda))
+    for M in (64, 4):
+        x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+        xp, xn, wp, wn, pre = _stream_planes(x, w, p)
+        xcat = torch.cat([xp, xn], dim=-1).contiguous()
+        if M == 64:
+            got = sc_matmul_cuda(xcat, (wp, wn), 512, draws)
+            want = ref.sc_matmul_ref(xcat, (wp, wn), 512, *draws)
+        else:
+            got = sc_matmul_fused_cuda(xcat, (wp, wn), 512, draws, pre, {}, torch.bfloat16)
+            want = sc_matmul_fused_ref(xcat, (wp, wn), 512, draws, pre, {}, torch.bfloat16)
+        assert float(want.float().abs().max()) > 0
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# M, K, N, array_size: M across the 64-row tile (1, 9, 64, 65), K not a
+# multiple of array_size (an array straddles the halves), arrays that end
+# inside a 4-row step, N not a multiple of the 128-column tile
+K6_SHAPES = [
+    (64, 2048, 256, 128),
+    (1, 7, 5, 128),
+    (9, 130, 129, 128),
+    (64, 300, 1000, 128),
+    (65, 200, 1000, 128),
+    (64, 130, 200, 64),
+    (9, 2048, 100, 64),
+    (65, 261, 77, 50),
+    (64, 96, 264, 6),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,A", K6_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_bitwise_shapes_and_arrays(cuda, M, K, N, A, dtype):
+    """K6 (float64 mma, byte codes, levels added in array order) against
+    its plain version: bitwise, one wrapper launch a call."""
+    _, x, w = _analog_operands(cuda, M, K, N, dtype, 3 * M + K + A)
+    before = build.LAUNCHES["analog_matmul"]
+    got = analog_matmul_cuda(x, w, A, 4, 4.0)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["analog_matmul"] == before + 1
+    want = ref.analog_matmul_ref(x, w, A, 4, 4.0)
+    assert float(want.abs().max()) > 0
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(64, 2048, 256), (9, 130, 129)])
+@pytest.mark.parametrize("adc_bits,adc_range", [(4, 3.0), (8, 4.0), (10, 2.5), (2, 0.5)])
+def test_k6_adc_settings(cuda, M, K, N, adc_bits, adc_range):
+    """K6 for other ADC widths and ranges: codes wider than a byte, and
+    ranges that are and are not a power of two."""
+    _, x, w = _analog_operands(cuda, M, K, N, torch.bfloat16, 5 * M + K + adc_bits)
+    got = analog_matmul_cuda(x, w, 128, adc_bits, adc_range)
+    want = ref.analog_matmul_ref(x, w, 128, adc_bits, adc_range)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048),
+                                 (2048, 151936)])
+def test_k6_serving_shapes(cuda, K, N):
+    """K6 at the five qwen2.5-3b sites, M = 64, on the analog emulator's
+    own planes (bf16 activations and fan-in-scaled weights), both
+    polarities as split_unipolar_contract calls it: bitwise."""
+    from repro_torch.configs.base import AnalogParams
+    from repro_torch.core.backends import _array_planes
+
+    p = AnalogParams()
+    g = torch.Generator(device=cuda).manual_seed(K + N)
+    w = (torch.randn((K, N), generator=g, device=cuda) * K ** -0.5).to(torch.bfloat16)
+    x = torch.randn((64, K), generator=g, device=cuda).to(torch.bfloat16)
+    xp, xn, wp, wn, _ = _array_planes(x, w, p)
+    xcat = torch.cat([xp, xn], dim=-1).contiguous()
+    for halves in ((wp, wn), (wn, wp)):
+        got = analog_matmul_cuda(xcat, halves, p.array_size, p.adc_bits, p.adc_range)
+        want = ref.analog_matmul_ref(xcat, halves, p.array_size, p.adc_bits, p.adc_range)
+        assert float(want.abs().max()) > 0
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("adc_bits", [4, 10])
+def test_k6_many_rows_at_lm_head_width(cuda, adc_bits):
+    """K6 at M = 512 against lm_head's N = 151936, where the ADC codes of
+    all rows and arrays (C M N, 2.5 GB at byte codes) would pass 2^31 bytes:
+    the call runs in passes of 64 rows (and, with 10-bit codes, of at most
+    13 arrays, each adding onto the float32 sums of the last), its scratch
+    is that of 64 rows, and it is bitwise equal to its plain version."""
+    M, K, N, A = 512, 2048, 151936, 128
+    lib = build.lib("analog_matmul")
+    assert lib.analog_scratch_bytes(M, N, K, A, adc_bits) == \
+        lib.analog_scratch_bytes(64, N, K, A, adc_bits) < 2**30
+    _, x, w = _analog_operands(cuda, M, K, N, torch.bfloat16, 17 + adc_bits)
+    before = build.LAUNCHES["analog_matmul"]
+    got = analog_matmul_cuda(x, w, A, adc_bits, 4.0)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["analog_matmul"] == before + 1
+    want = ref.analog_matmul_ref(x, w, A, adc_bits, 4.0)
+    assert float(want.abs().max()) > 0
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -10,9 +10,10 @@ versions.
 
 Random streams.  The reference draws SC's generator sequences inside
 ``repro.kernels.ops`` with ``jax.random.uniform``.  The port takes them
-as tensors, so these tests feed it the JAX draws for the same key path
-(:func:`jax_draws`), and both packages see identical streams.  Without
-fed draws the port makes its own, and the contract is statistical.
+as tensors, and these tests feed it the JAX draws for the same key path
+(:func:`jax_draws`), which documents the path.  The port's own draws
+(``repro_torch.kernels.prng``, threefry) are the same bits, so fed or
+not, both packages see identical streams (``tests/test_torch_prng.py``).
 
 Contracts:
 

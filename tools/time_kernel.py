@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time an emulation kernel at every serving shape of qwen2.5-3b on the
 card, K5 (``sc_matmul_packed_fused``), K7 (``analog_matmul_fused``), K4
-(``sc_matmul_packed``, prefill), K2 (``elementwise_matmul_fused``) or K1
-(``elementwise_matmul``, prefill), both multipliers for K1 and K2, for the
+(``sc_matmul_packed``, prefill), K6 (``analog_matmul``, prefill), K2
+(``elementwise_matmul_fused``), K1 (``elementwise_matmul``, prefill) or
+the SC draws (``prng``), both multipliers for K1 and K2, for the
 ``repro_torch`` package under ``--src``, so that two trees can be timed in
 turns in one run on one card:
 
@@ -12,8 +13,13 @@ turns in one run on one card:
 Needs a CUDA device.  Operands are the emulator's own (its value-domain
 code on random bf16 activations and fan-in-scaled weights, seed 1), M = 4
 (the engine's decode slots; K4: 64, the largest prompt bucket of
-``chip_smoke.py``), empty epilogue, bf16 out; the SC draws are the port's
-own.  K5 takes the threshold tables of its draws built beforehand, as on
+``chip_smoke.py``; K1 and K6: ``--m``, default 64), empty epilogue, bf16 out; the SC draws are the port's
+own, ``--bits`` long (K4 and K5).  K6 is one polarity's call, as
+``split_unipolar_contract`` makes it twice per prefill projection; its
+row adds the float64 tensor-core bound (a multiply-add per row, port and
+column at 67 TFLOP/s).  ``prng`` times ``ops.sc_draws`` for a decode
+site's key path and 2K ports (``device_ms`` counts every kernel of the
+call: in a tree that draws with ``torch.rand``, those).  K5 takes the threshold tables of its draws built beforehand, as on
 the decode path, where a tree has them (``SCDraws``); a tree without
 them builds its tables inside every call, as K4 does in every tree here
 (a prefill projection shares one build between its two K4 calls).  Times: CUDA events
@@ -53,6 +59,8 @@ HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 LANE_INSTR_S = 132 * 128 * 1.98e9  # H100 SXM: SMs x lanes x boost clock
 K5_INSTR_PER_PAIR = 63  # K5's word build and OR-accumulation per weight pair (sc_matmul.cu)
 DECODE_M, PREFILL_M = 4, 64
+F64_TENSOR_OPS_S = 67e12  # H100 SXM float64 tensor-core rate (data sheet)
+BITS = [32]  # SC stream length (--bits)
 # (K, N) of every dense() site of qwen2.5-3b: q/o, k/v, gate/up, down, lm_head
 SHAPES = [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048), (2048, 151936)]
 TRACE_TRIES = 3
@@ -78,7 +86,7 @@ def sc_operands(M, K, N, g, dev):
     from repro_torch.core.backends import _stream_planes
     from repro_torch.kernels import ops
 
-    p = SCParams()
+    p = SCParams(bits=BITS[0])
     w = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).to(torch.bfloat16)
     x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
     xp, xn, wp, wn, pre = _stream_planes(x, w, p)
@@ -126,6 +134,30 @@ def k7_call(K, N, g, dev):
                                             p.adc_range, pre, {}, torch.bfloat16), None
 
 
+def k6_call(K, N, g, dev, M):
+    """One K6 call at one shape: the positive polarity of a prefill
+    projection of M tokens, on the emulator's planes."""
+    from repro_torch.configs.base import AnalogParams
+    from repro_torch.core.backends import _array_planes
+    from repro_torch.kernels.analog_matmul import analog_matmul_cuda
+
+    p = AnalogParams()
+    w = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).to(torch.bfloat16)
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    xp, xn, wp, wn, _ = _array_planes(x, w, p)
+    xcat = torch.cat([xp, xn], dim=-1).contiguous()
+    return lambda: analog_matmul_cuda(xcat, (wp, wn), p.array_size, p.adc_bits,
+                                      p.adc_range), None
+
+
+def prng_call(K, N, g, dev):
+    """The SC draws of one decode site's key path for 2K ports (any tree)."""
+    from repro_torch.kernels import ops
+
+    path = (0, 7, 1583461021)
+    return lambda: ops.sc_draws(path, 2 * K, BITS[0], dev), None
+
+
 def k2_call(K, N, g, dev, mul):
     """The fused decode projection of a multiplier-error backend, from the
     operands themselves (any tree)."""
@@ -151,8 +183,10 @@ def k1_call(K, N, g, dev, mul, M):
 
 # kernel -> (call maker, name key of its kernels in a trace; "" counts every kernel)
 KERNELS = {"k4": (k4_call, "repro_sc::"), "k5": (k5_call, "repro_sc::"),
-           "k7": (k7_call, "repro_analog::"), "k2": (k2_call, ""), "k1": (k1_call, "repro_vpu::")}
-BY_KERNEL = ("scale_pass", "decode_contract", "contract", "finish", "to_float")
+           "k6": (k6_call, "repro_analog::"), "k7": (k7_call, "repro_analog::"),
+           "k2": (k2_call, ""), "k1": (k1_call, "repro_vpu::"), "prng": (prng_call, "")}
+BY_KERNEL = ("scale_pass", "decode_contract", "prefill_contract", "contract", "sum_levels",
+             "finish", "to_float")
 
 
 def trace_split(fn, iters: int):
@@ -177,8 +211,10 @@ def main() -> int:
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1] / "src"))
     ap.add_argument("--label", default="")
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--m", type=int, default=PREFILL_M, help="K1's rows")
+    ap.add_argument("--m", type=int, default=PREFILL_M, help="K1's and K6's rows")
+    ap.add_argument("--bits", type=int, default=32, help="SC stream length (K4, K5, prng)")
     args = ap.parse_args()
+    BITS[0] = args.bits
     if not torch.cuda.is_available():
         print("time_kernel: no CUDA device", file=sys.stderr)
         return 1
@@ -199,6 +235,8 @@ def main() -> int:
             run, tables = make(K, N, g, dev, *extra), None
         elif args.kernel == "k1":
             run, tables = make(K, N, g, dev, *extra, args.m), None
+        elif args.kernel == "k6":
+            run, tables = make(K, N, g, dev, args.m)
         else:
             run, tables = make(K, N, g, dev)
         run()
@@ -211,19 +249,28 @@ def main() -> int:
         torch.cuda.synchronize()
         ms = start.elapsed_time(end) / args.iters
         dev_ms = device_ms(run, args.iters, key)
-        M = {"k4": PREFILL_M, "k1": args.m}.get(args.kernel, DECODE_M)
+        M = {"k4": PREFILL_M, "k6": args.m, "k1": args.m}.get(args.kernel, DECODE_M)
         if args.kernel == "k2":  # x, w and the output, bf16
             bound_ms = (2 * M * K + 2 * K * N + 2 * M * N) / HBM_BYTES_S * 1e3
         elif args.kernel == "k1":  # x, w (bf16) and the float32 output
             bound_ms = (2 * M * K + 2 * K * N + 4 * M * N) / HBM_BYTES_S * 1e3
+        elif args.kernel == "k6":  # x [M, 2K] and two halves (bf16), the float32 output
+            bound_ms = (2 * M * 2 * K + 2 * 2 * K * N + 4 * M * N) / HBM_BYTES_S * 1e3
+        elif args.kernel == "prng":  # ux and uw written once, float32
+            bound_ms = 4 * (2 * K + 1) * args.bits / HBM_BYTES_S * 1e3
         else:  # x [M, 2K] and two weight halves
             bound_ms = (2 * M * 2 * K + 2 * 2 * K * N + 2 * M * N) / HBM_BYTES_S * 1e3
         row = {"label": args.label, "kernel": args.kernel, "shape": [M, K, N], "ms": ms,
                "device_ms": dev_ms, "bound_ms": bound_ms, "share": bound_ms / dev_ms,
                "card": card}
-        if two_muls:
-            row["mul"] = extra[0]
+        if two_muls or args.kernel in ("k6", "prng"):
+            if two_muls:
+                row["mul"] = extra[0]
             row["launches"], row["by_kernel"] = trace_split(run, args.iters)
+        if args.kernel == "k6":
+            row["f64_ops_bound_ms"] = 2.0 * M * 2 * K * N / F64_TENSOR_OPS_S * 1e3
+        if args.kernel in ("k4", "k5", "prng"):
+            row["bits"] = args.bits
         if args.kernel == "k5":
             row["instr_floor_ms"] = K * N * K5_INSTR_PER_PAIR / LANE_INSTR_S * 1e3
             if tables is not None:
