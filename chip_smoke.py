@@ -12,9 +12,11 @@ checkout of the repository.  Phases, each synchronised before the next:
    shapes the serving path gives it (qwen2.5-3b full width): K1 and K2 for
    both multipliers, K4 and K5 (SC), K6 and K7 (analog) must be bitwise
    equal (the fused ones also with random epilogue operands); K3 within
-   1e-4, also at G * dh = 6144 (granite-20b's attention group).  K2 runs
-   as the serving path calls it, on bf16 activations and weights that it
-   quantises itself, and on its integer-operand entry.  The SC and analog operands come from the emulators' own
+   1e-4, also at G * dh = 6144 (granite-20b's attention group).  K1 (the
+   prefill projection, 64 rows) and K2 (decode) run as the serving path
+   calls them, on bf16 activations and weights that they quantise
+   themselves, and on their integer-operand entries (K1's truncated
+   product on the int8 tensor cores).  The SC and analog operands come from the emulators' own
    value-domain code on random bf16 activations and weights.  K5 takes
    the threshold tables of its draws built beforehand, as on the decode
    path, and the tables kernel is held bitwise against its plain version
@@ -65,6 +67,31 @@ F64_TENSOR_OPS_S = 67e12  # H100 SXM float64 tensor-core rate (data sheet)
 # 32-bit integer instructions a second: at most half the float32 rate,
 # which counts each FMA as two operations
 INT_OPS_S = CUDA_CORE_OPS_S / 2
+INT8_TENSOR_OPS_S = 1979e12  # H100 SXM dense int8 tensor-core rate (data sheet)
+# H100 SXM instruction rates: SMs x lanes a clock x boost clock, for all
+# instructions dispatched (128 lanes an SM) and for the ALU pipe (64:
+# LOP3, IADD3, ISETP, SEL)
+INSTR_S = 132 * 128 * 1.98e9
+ALU_S = 132 * 64 * 1.98e9
+# instructions a product, (all, on the ALU pipe), from the SASS of
+# csrc/vpu_matmul.cu: Mitchell's product as the add of float32 bit patterns
+# of K1's contraction (an integer add, a LOP3, an FADD; the least count of
+# the function, so K2's bound takes it too) and K2's truncated product
+# (IMAD, LOP3, IADD3)
+PRODUCT_INSTR = {"log_mult": (3, 1), "approx_mult": (3, 2)}
+# instructions a weight, shared by the M rows that use it: its level-table
+# load and the fold of its sign
+WEIGHT_INSTR = (2, 1)
+
+
+def product_bound(nbytes: float, mul: str, M: int, K: int, N: int):
+    """The bytes, or the M K N products and the K N weights' preparation at
+    the busier of dispatch and the ALU pipe, whichever takes longer."""
+    (p_all, p_alu), (w_all, w_alu) = PRODUCT_INSTR[mul], WEIGHT_INSTR
+    t_ops = K * N * max((M * p_all + w_all) / INSTR_S, (M * p_alu + w_alu) / ALU_S)
+    return bound(nbytes, t_ops * INSTR_S, INSTR_S)
+
+
 THREEFRY_OPS = 72        # integer ops of one threefry2x32 block (prng.cu)
 SC_LONG_BITS = 512       # the stream length of the K4/K5 rows beyond the old 256-bit cap
 PREFILL_M = 64           # largest prompt bucket of the engine phase
@@ -73,8 +100,10 @@ MAX_SEQ = 96             # engine phase: prompts <= 64 + <= 32 new tokens
 
 # kernel (launch-count name) -> (CUDA source, the TPU kernel's pl.pallas_call)
 KERNEL_SOURCES = {
-    "elementwise_matmul[approx_mult]": ("vpu_matmul.cu", "vpu_matmul.py:79"),
-    "elementwise_matmul[log_mult]": ("vpu_matmul.cu", "vpu_matmul.py:79"),
+    # K1's function on the operands themselves (the prefill projection, the
+    # quantisation in front of the reference's pallas_call taken in)
+    "elementwise_matmul[approx_mult,quantized]": ("vpu_matmul.cu", "vpu_matmul.py:79"),
+    "elementwise_matmul[log_mult,quantized]": ("vpu_matmul.cu", "vpu_matmul.py:79"),
     "elementwise_matmul_fused[approx_mult]": ("vpu_matmul.cu", "vpu_matmul.py:228"),
     "elementwise_matmul_fused[log_mult]": ("vpu_matmul.cu", "vpu_matmul.py:228"),
     "flash_decode": ("flash_decode.cu", "flash_decode.py:98"),
@@ -89,8 +118,8 @@ KERNEL_SOURCES = {
     # Pallas kernel)
     "sc_draws": ("prng.cu", "ops.py:97"),
 }
-# the kernels the serving path launches (K2's integer-operand entry and the
-# packed-words entry of K4 are checks off the path)
+# the kernels the serving path launches (the integer-operand entries of K1
+# and K2 and the packed-words entry of K4 are checks off the path)
 PATH_KERNELS = tuple(KERNEL_SOURCES)
 EMULATED = ("log_mult", "approx_mult", "sc", "analog")
 
@@ -193,7 +222,12 @@ def phase_kernels(dev, cfg):
 
     def report(name, M, K, N, err, run, plain, nbytes, key="repro_vpu::"):
         iters = 3 if M * K * N > 2e9 else 10
-        b_ms, b_by = bound(nbytes, 2.0 * M * K * N)
+        if name.startswith("elementwise_matmul[approx_mult"):
+            # the slot formulation: an int8 multiply-add per row, slot, k and column
+            b_ms, b_by = bound(nbytes, 2.0 * M * 16 * K * N, INT8_TENSOR_OPS_S)
+        else:  # the products' instructions
+            mul = "log_mult" if "log_mult" in name else "approx_mult"
+            b_ms, b_by = product_bound(nbytes, mul, M, K, N)
         row = {"name": name, "shape": [M, K, N], "max_abs_err": err,
                "ms": cuda_ms(run, iters), "device_ms": device_ms(run, iters, key),
                "plain_ms": cuda_ms(plain, 1), "bound_ms": b_ms, "bound_by": b_by,
@@ -205,15 +239,25 @@ def phase_kernels(dev, cfg):
     for mul, (hi, drop, bits) in mults.items():
         mulf = plain_multiplier(mul, drop)
         for K, N in _site_shapes(cfg):
-            # K1 (prefill) on integer operands
+            # K1 (prefill) on integer operands: a check entry
             M = PREFILL_M
             x = torch.randint(-hi, hi + 1, (M, K), generator=g, device=dev).to(bf)
             w = torch.randint(-hi, hi + 1, (K, N), generator=g, device=dev).to(bf)
-            run = lambda: elementwise_matmul_cuda(x, w, mul, drop)
+            run = lambda: elementwise_matmul_cuda(x, w, mul, drop, bits)
             plain = lambda: ref.elementwise_matmul_ref(x, w, mulf)
             _hold(f"elementwise_matmul[{mul}]", (M, K, N), run(), plain())
             report(f"elementwise_matmul[{mul}]", M, K, N, 0.0, run, plain,
                    2 * (M * K + K * N) + 4 * M * N)
+            # the prefill projection as the serving path calls it: bf16
+            # activations and fan-in-scaled weights, quantised in the kernel
+            xq = torch.randn((M, K), generator=g, device=dev).to(bf)
+            wq = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).to(bf)
+            run = lambda: int_operand_matmul_fused_cuda(xq, wq, bits, mul, {}, bf, drop)
+            plain = lambda: int_operand_matmul_fused_ref(xq, wq, bits, mulf, {}, bf)
+            _hold(f"elementwise_matmul[{mul},quantized]", (M, K, N), run(), plain())
+            report(f"elementwise_matmul[{mul},quantized]", M, K, N, 0.0, run, plain,
+                   2 * (M * K + K * N) + 2 * M * N)
+            del xq, wq
             # K2's integer-operand entry (the reference kernel's interface)
             M = DECODE_M
             x, w = x[:M].contiguous(), w
@@ -303,9 +347,10 @@ def _sc_analog_bound(kname, M, K, N, bits):
         fused = kname.endswith("fused")
         nbytes = 2 * M * P + planes + draws + (2 if fused else 4) * M * N
         pol = 2 if fused else 1
-        # AND + OR per (row, port, column, word); one op per stream word built
-        ops = pol * (2 * M * P * N * W + P * N * W) + M * P * W
-        return bound(nbytes, ops)
+        # a LOP3 (AND, then OR) per (row, port, column, word) on the ALU
+        # pipe; one per stream word built
+        ops = pol * (M * P * N * W + P * N * W) + M * P * W
+        return bound(nbytes, ops, ALU_S)
     return bound(*_analog_work(kname, M, K, N), F64_TENSOR_OPS_S)
 
 

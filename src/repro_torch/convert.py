@@ -4,8 +4,10 @@
 after ``jax.tree.map(np.asarray, params)`` — layer leaves stacked as
 ``[L, ...]`` — and returns the port's :class:`~repro_torch.models.
 transformer.Transformer` holding the same values, so both packages
-compute the same function.  Only numpy is read; bfloat16 arrays (numpy's
-``ml_dtypes`` extension type) are reinterpreted bit for bit.
+compute the same function, on ``device`` (the card unless the caller
+asks for the CPU, as the port's other entry points).  Only numpy is read;
+bfloat16 arrays (numpy's ``ml_dtypes`` extension type) are reinterpreted
+bit for bit.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ def _tensor(a, device) -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_jax(tree: Dict[str, Any], device="cpu") -> Transformer:
+def params_from_jax(tree: Dict[str, Any], device="cuda") -> Transformer:
     lay = tree["layers"]
     attn, mlp = lay["attn"], lay["mlp"]
     layers = []

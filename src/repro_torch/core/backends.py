@@ -7,10 +7,11 @@ The value-domain scaling — dynamic scales, split-unipolar planes,
 operand quantisation — runs in plain torch, op for op as in the
 reference (``torch.round`` rounds half to even like ``jnp.round``); the
 kernels in :mod:`repro_torch.kernels.ops` do the contractions.  The
-exception is the fused path of approx_mult and log_mult: K2 takes the
-operands themselves and quantises them on load, bit for bit as
-:func:`repro_torch.kernels.vpu_matmul.int_operand_quantize` does.  Two
-details keep the ops those of the reference:
+exception is approx_mult and log_mult: their kernels take the operands
+themselves and quantise them on load, bit for bit as
+:func:`repro_torch.kernels.vpu_matmul.int_operand_quantize` does (K2 at
+decode, the prefill contractions at more than 4 rows).  Two details keep
+the ops those of the reference:
 
 * A Python constant meets a tensor as a 0-dim tensor of the tensor's
   dtype (:func:`repro_torch.kernels.ref.const`), as JAX's weak typing
@@ -40,7 +41,6 @@ from repro_torch.core.proxy import split_signed, tensor_scale
 from repro_torch.core.registry import BackendSpec, concat_planes, split_unipolar_contract
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import const
-from repro_torch.kernels.vpu_matmul import int_operand_quantize as _int_operand_quantize
 
 
 def fake_quant_unipolar(x, bits: int):
@@ -107,56 +107,55 @@ def _emulate_analog(x, w, p: AnalogParams, rng):
     return (out * prescale).to(x.dtype)
 
 
-def _int_operand_emulate(x, w, bits: int, matmul):
-    """Scale to signed integers, contract through ``matmul``, rescale."""
-    xi, wi, prescale = _int_operand_quantize(x, w, bits)
-    acc = matmul(xi.reshape(-1, x.shape[-1]), wi)
-    out = acc.reshape(x.shape[:-1] + (w.shape[-1],)) * prescale
-    return out.to(x.dtype)
+# The multiplier-error backends hand the operands themselves to the
+# kernels, which quantise them on load: no plain-torch op runs over the
+# weight.  The reference runs _int_operand_quantize in front of its kernel
+# (XLA fuses it into one program): _int_operand_emulate for the prefill
+# projection, then (acc * prescale).astype(x.dtype); _fused_int_operand,
+# with the chip/calibration epilogue, for the decode projection.  The
+# port's one entry per multiplier computes both, the prefill with an empty
+# epilogue (the same ops: the epilogue of {} is the identity); on the CPU
+# it is the plain int_operand_matmul_fused_ref, op for op the reference's.
 
 
-def _emulate_approx_mult(x, w, p: ApproxMultParams, rng):
-    del rng
-    return _int_operand_emulate(
-        x, w, p.bits, lambda a, b: kops.approx_mult_matmul(a, b, p.bits, p.perforate)
-    )
-
-
-def _emulate_log_mult(x, w, p: LogMultParams, rng):
-    del rng
-    return _int_operand_emulate(x, w, p.bits, kops.log_matmul)
-
-
-# Fused MODEL-mode emulators: matmul + chip/calibration epilogue in one
-# kernel call (the serving decode path).  Scaling mirrors the composed
-# emulators above op for op, so fused == composed bit for bit.  The
-# multiplier-error backends hand the operands themselves to the kernel,
-# which quantises them on load (the reference's _fused_int_operand runs
-# _int_operand_quantize in front of the fused kernel, which XLA fuses into
-# one program): no plain-torch op runs over the weight.
-
-
-def _fused_int_operand(x, w, matmul_quantized, epi: dict):
+def _int_operand_emulate(x, w, matmul_quantized, epi: dict):
     x2 = x.reshape(-1, x.shape[-1])
     # a tied lm_head's weight is a transposed view (not a qwen2.5-3b path)
     y = matmul_quantized(x2.contiguous(), w.contiguous(), epi, x.dtype)
     return y.reshape(x.shape[:-1] + (w.shape[-1],))
 
 
+def _approx_mult_quantized(p: ApproxMultParams):
+    return lambda a, b, e, dt: kops.approx_mult_matmul_quantized(a, b, p.bits, p.perforate, e, dt)
+
+
+def _log_mult_quantized(p: LogMultParams):
+    return lambda a, b, e, dt: kops.log_matmul_quantized(a, b, p.bits, e, dt)
+
+
+def _emulate_approx_mult(x, w, p: ApproxMultParams, rng):
+    del rng
+    return _int_operand_emulate(x, w, _approx_mult_quantized(p), {})
+
+
+def _emulate_log_mult(x, w, p: LogMultParams, rng):
+    del rng
+    return _int_operand_emulate(x, w, _log_mult_quantized(p), {})
+
+
+# Fused MODEL-mode emulators: matmul + chip/calibration epilogue in one
+# kernel call (the serving decode path).  Scaling mirrors the composed
+# emulators above op for op, so fused == composed bit for bit.
+
+
 def _fused_emulate_approx_mult(x, w, p: ApproxMultParams, rng, epi):
     del rng
-    return _fused_int_operand(
-        x, w,
-        lambda a, b, e, dt: kops.approx_mult_matmul_quantized(a, b, p.bits, p.perforate, e, dt),
-        epi,
-    )
+    return _int_operand_emulate(x, w, _approx_mult_quantized(p), epi)
 
 
 def _fused_emulate_log_mult(x, w, p: LogMultParams, rng, epi):
     del rng
-    return _fused_int_operand(
-        x, w, lambda a, b, e, dt: kops.log_matmul_quantized(a, b, p.bits, e, dt), epi
-    )
+    return _int_operand_emulate(x, w, _log_mult_quantized(p), epi)
 
 
 def _fused_emulate_sc(x, w, p: SCParams, rng, epi):

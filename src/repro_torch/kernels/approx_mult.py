@@ -13,7 +13,7 @@ from repro_torch.kernels.vpu_matmul import (
 def approx_mult_matmul(x, w, mult_bits: int, perforate: int):
     """x: [M, K] integer-valued in [-(2^b-1), 2^b-1], w: [K, N] -> [M, N] f32."""
     _check_bits(mult_bits)
-    return elementwise_matmul_cuda(x, w, "approx_mult", 2 * perforate)
+    return elementwise_matmul_cuda(x, w, "approx_mult", 2 * perforate, mult_bits)
 
 
 def approx_mult_matmul_fused(

@@ -34,21 +34,25 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # library -> {C entry point: argtypes}
 SIGNATURES = {
     "vpu_matmul": {
-        # mul, in_bf16, x, w, acc, out, M, N, K, drop_bits, stream
-        "vpu_matmul": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # mul, in_bf16, x, w, aslots, acc, out, M, N, K, bits, drop_bits, stream
+        "vpu_matmul": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # mul, M, K, bits, drop_bits -> 16-byte words of A' scratch
+        "vpu_slot_words": (_I, _I, _I, _I, _I),
+        # mul, M, N, K, bits, drop_bits -> split planes of int32 sums
+        "vpu_plane_count": (_I, _I, _I, _I, _I, _I),
         # mul, in_bf16, out_bf16, x, w, pre, gain, add, coeffs, P,
         # mean_scale, eps, acc, out, M, N, K, drop_bits, stream
         "vpu_matmul_fused": (
             _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F, _F, _P, _P,
             _I, _I, _I, _I, _P,
         ),
-        # mul, in_bf16, out_bf16, x, w, hold, scales, lev, lev2, eps_in,
-        # gain, add, coeffs, P, mean_scale, eps, acc, out, M, N, K,
-        # drop_bits, stream
         # M -> words of vpu_quantize_matmul_fused's scales buffer
         "vpu_scales_words": (_I,),
+        # mul, in_bf16, out_bf16, x, w, hold, scales, aslots, bits, lev,
+        # lev2, eps_in, gain, add, coeffs, P, mean_scale, eps, acc, out, M,
+        # N, K, drop_bits, stream
         "vpu_quantize_matmul_fused": (
-            _I, _I, _I, _P, _P, _P, _P, _F, _F, _F, _P, _P, _P, _I, _F, _F,
+            _I, _I, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F, _P, _P, _P, _I, _F, _F,
             _P, _P, _I, _I, _I, _I, _P,
         ),
     },
@@ -92,9 +96,16 @@ SIGNATURES = {
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {
+    # K1 on integer-valued operands, the reference kernel's own interface:
+    # a check entry, off the serving path
     "elementwise_matmul[approx_mult]": 0,
     "elementwise_matmul[log_mult]": 0,
-    # K2 on the operands themselves, quantising them on load: the serving path
+    # K1's function on the operands themselves, quantising them on load
+    # (more than 4 rows): the serving path's prefill
+    "elementwise_matmul[approx_mult,quantized]": 0,
+    "elementwise_matmul[log_mult,quantized]": 0,
+    # K2 on the operands themselves, quantising them on load (at most 4
+    # rows): the serving path's decode
     "elementwise_matmul_fused[approx_mult]": 0,
     "elementwise_matmul_fused[log_mult]": 0,
     # K2 on integer-valued operands, the reference kernel's own interface:

@@ -3,20 +3,25 @@ fused versions (port of ``repro.kernels.vpu_matmul``, and of the operand
 quantisation ``repro.core.backends._int_operand_quantize`` that K2 takes
 in).
 
-``elementwise_matmul_cuda`` (K1), ``int_operand_matmul_fused_cuda`` (K2 on
-the operands themselves, the serving path) and
-``elementwise_matmul_fused_cuda`` (K2 on integer-valued operands, the
-reference kernel's interface) launch ``csrc/vpu_matmul.cu``; the
-multiplier is picked by name (``"approx_mult"`` or ``"log_mult"``), since
-the per-product op lives in the CUDA source.  Their plain versions are
-:func:`repro_torch.kernels.ref.elementwise_matmul_ref`,
+``elementwise_matmul_cuda`` (K1 on integer-valued operands, the reference
+kernel's interface), ``int_operand_matmul_fused_cuda`` (the operands
+themselves, the serving path: K2 at M <= 4 rows, the prefill projection
+at more) and ``elementwise_matmul_fused_cuda`` (K2 on integer-valued
+operands, the reference kernel's interface) launch ``csrc/vpu_matmul.cu``;
+the multiplier is picked by name (``"approx_mult"`` or ``"log_mult"``),
+since the per-product op lives in the CUDA source.  Their plain versions
+are :func:`repro_torch.kernels.ref.elementwise_matmul_ref`,
 :func:`int_operand_matmul_fused_ref` and :func:`elementwise_matmul_fused_ref`
-below.
+below.  With more than 4 rows, the truncated product of operands of at
+most 7 bits with at most 4 dropped bits runs on the int8 tensor cores
+through the slot identity of :func:`truncated_slots` (the source's note
+gives the routes).
 
 The integer entries take integer-valued float32 or bfloat16 tensors of
-magnitude at most 255 (what the operand quantisation produces).  The
-kernels read them as integers: a non-integer operand is rounded to the
-nearest integer, where the plain version would multiply it as a float.
+magnitude at most 255 (what the operand quantisation produces; K1: at
+most ``2^bits - 1``, and it refuses more).  The kernels read them as integers: a non-integer
+operand is rounded to the nearest integer, where the plain version would
+multiply it as a float.
 """
 from __future__ import annotations
 
@@ -77,6 +82,25 @@ def int_operand_matmul_fused_ref(x, w, bits: int, mul: Callable, epi: Dict, out_
     return elementwise_matmul_fused_ref(xi, wi, mul, prescale, epi, out_dtype)
 
 
+def truncated_slots(a, b, drop_bits: int):
+    """The slots through which the tensor-core route sums truncated
+    products: ``A'`` [..., S] of integer-valued ``a`` and ``B'`` [..., S]
+    of ``b`` (int64), S = max(16, 2^drop_bits), with ``(A' * B').sum(-1) ==
+    approx_mul(a, b, drop_bits)`` for any integers.  Slot 0 is the exact
+    product; slot j = 1..S-1 takes ``-sign(a) ((r(a) j) mod 2^d)`` against
+    ``sign(b) [r(b) == j]``, r(v) = |v| mod 2^d (the plain version of
+    ``k1::a_slots`` and ``k1::b_slots``, whose 16 int8 slots hold these for
+    |a|, |b| <= 127 and ``drop_bits`` <= 4)."""
+    low = (1 << drop_bits) - 1
+    a, b = a.to(torch.int64), b.to(torch.int64)
+    j = torch.arange(max(16, low + 1), dtype=torch.int64, device=a.device)
+    ra, rb = (a.abs() & low)[..., None], (b.abs() & low)[..., None]
+    sa, sb = torch.sign(a)[..., None], torch.sign(b)[..., None]
+    ap = torch.where(j == 0, a[..., None], -sa * ((ra * j) & low))
+    bp = torch.where(j == 0, b[..., None], sb * (rb == j).to(torch.int64))
+    return ap, bp
+
+
 def _check(x, w):
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(
@@ -92,20 +116,6 @@ def _check(x, w):
         raise ValueError(f"K={x.shape[1]} overflows the int32 accumulator (max {MAX_K})")
 
 
-def elementwise_matmul_cuda(x, w, mul: str, drop_bits: int = 0):
-    """K1: [M,K] @ [K,N] -> [M,N] float32 through the named multiplier."""
-    _check(x, w)
-    M, K = x.shape
-    N = w.shape[1]
-    acc = torch.empty((M, N), dtype=torch.int32, device=x.device)
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    build.launch(
-        f"elementwise_matmul[{mul}]", "vpu_matmul", "vpu_matmul",
-        _MUL_CODE[mul], _DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(),
-        acc.data_ptr(), out.data_ptr(), M, N, K, drop_bits,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    return out
 
 
 def _row_operand(v, N: int, dtype, device) -> Optional[torch.Tensor]:
@@ -177,10 +187,11 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-# (device, stream) -> K2's int32 words that are zero between calls: the
-# accumulators, which the finishing pass clears after reading them, and
-# the scale pass's maxima and block count, which its last block clears.
-# So a call launches no memset.  Zero-filled when first made or grown.
+# (device, stream) -> K1's and K2's int32 words that are zero between
+# calls: the accumulators, which the finishing passes clear after reading
+# them, and the scale pass's maxima and block count, which its last block
+# clears.  So a call launches no memset.  Zero-filled when first made or
+# grown.
 _CLEAR: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
@@ -224,16 +235,68 @@ def elementwise_matmul_fused_cuda(
     return out
 
 
+def _prefill_scratch(mul: str, M: int, N: int, K: int, bits: int, drop_bits: int, dev):
+    """The tensor-core route's A' (16 bytes an activation; one word off it)
+    and a prefill contraction's split planes of int32 sums (None at M <= 4:
+    the decode contraction adds into cleared accumulators)."""
+    so, code = build.lib("vpu_matmul"), _MUL_CODE[mul]
+    words = so.vpu_slot_words(code, M, K, bits, drop_bits)
+    planes = so.vpu_plane_count(code, M, N, K, bits, drop_bits)
+    slots = torch.empty((max(words, 1), 16), dtype=torch.uint8, device=dev)
+    sums = torch.empty((planes, M, N), dtype=torch.int32, device=dev) if planes else None
+    return slots, sums
+
+
+def _check_range(x, w, bits: int) -> None:
+    """Refuse integer operands past 2^bits - 1 after the kernel's rounding
+    (half to even, so |v| >= 2^bits - 1/2 is past): the route that
+    ``bits`` picks computes only those (one reduction of each operand and
+    a synchronisation; the integer entry is off the serving path)."""
+    if x.numel() == 0 or w.numel() == 0:
+        return
+    lim = (1 << bits) - 0.5
+    ext = torch.stack([t.float() for v in (x, w) for t in torch.aminmax(v)])
+    if not bool((ext.abs() < lim).all()):
+        big = ext.abs().max().item()
+        raise ValueError(f"operands of {bits} bits have |v| <= {(1 << bits) - 1}; got {big}")
+
+
+def elementwise_matmul_cuda(x, w, mul: str, drop_bits: int = 0, bits: int = MAX_BITS):
+    """K1: [M,K] @ [K,N] -> [M,N] float32 through the named multiplier, on
+    integer-valued operands of at most ``bits`` bits (|v| <= 2^bits - 1):
+    two or three launches, no memset."""
+    _check(x, w)
+    if not 1 <= bits <= MAX_BITS:
+        raise ValueError(f"the CUDA kernel takes operands of 1 to {MAX_BITS} bits; got {bits}")
+    _check_range(x, w, bits)
+    M, K = x.shape
+    N = w.shape[1]
+    dev = x.device
+    stream = _stream(dev)
+    slots, acc = _prefill_scratch(mul, M, N, K, bits, drop_bits, dev)
+    if acc is None:
+        acc = _clear_words(dev, stream, M * N)
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    _launch_clearing(
+        dev, stream, f"elementwise_matmul[{mul}]", "vpu_matmul",
+        _MUL_CODE[mul], _DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(), slots.data_ptr(),
+        acc.data_ptr(), out.data_ptr(), M, N, K, bits, drop_bits, stream,
+    )
+    return out
+
+
 def int_operand_matmul_fused_cuda(
     x, w, bits: int, mul: str, epi: Dict, out_dtype, drop_bits: int = 0
 ):
-    """K2 on the operands themselves: x [M, K] and w [K, N] (float32 or
+    """The operands themselves: x [M, K] and w [K, N] (float32 or
     bfloat16) quantised to ``bits``-bit integers as
     :func:`int_operand_quantize` does, contracted through the named
     multiplier, rescaled, cast to ``out_dtype`` and passed through the
     epilogue ``epi``: three launches (the scale pass, the contraction and
     the finishing pass), each weight read from device memory by the first
-    two only."""
+    two only.  M <= 4 rows is K2, the decode projection; more rows are the
+    prefill projection (K1's function with the quantisation taken in),
+    counted as ``elementwise_matmul[{mul},quantized]``."""
     _check(x, w)
     if not 1 <= bits <= MAX_BITS:
         raise ValueError(f"the CUDA kernel takes operands of 1 to {MAX_BITS} bits; got {bits}")
@@ -242,16 +305,25 @@ def int_operand_matmul_fused_cuda(
     dev = x.device
     ops = epilogue_operands(M, N, None, epi, out_dtype, dev)
     stream = _stream(dev)
-    words = _clear_words(dev, stream, M * N + 2 + M)
+    slots, acc = _prefill_scratch(mul, M, N, K, bits, drop_bits, dev)
+    decode = acc is None  # K2's contraction: it adds into cleared accumulators
+    if decode:  # cleared accumulators, then the scale pass's 2 + M words
+        acc = _clear_words(dev, stream, M * N + 2 + M)
+        hold = acc[M * N:]
+    else:
+        hold = _clear_words(dev, stream, 2 + M)
     scales = torch.empty((build.lib("vpu_matmul").vpu_scales_words(M),), dtype=torch.float32,
                          device=dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     levels = (1 << bits) - 1
+    kernel = f"elementwise_matmul_fused[{mul}]" if decode else \
+        f"elementwise_matmul[{mul},quantized]"
     _launch_clearing(
-        dev, stream, f"elementwise_matmul_fused[{mul}]", "vpu_quantize_matmul_fused",
+        dev, stream, kernel, "vpu_quantize_matmul_fused",
         _MUL_CODE[mul], _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
-        x.data_ptr(), w.data_ptr(), words[M * N:].data_ptr(), scales.data_ptr(),
+        x.data_ptr(), w.data_ptr(), hold.data_ptr(), scales.data_ptr(),
+        slots.data_ptr(), bits,
         float(levels), _in_dtype(levels * levels, x.dtype), _in_dtype(OPERAND_EPS, x.dtype),
-        *ops.pointers()[1:], words.data_ptr(), out.data_ptr(), M, N, K, drop_bits, stream,
+        *ops.pointers()[1:], acc.data_ptr(), out.data_ptr(), M, N, K, drop_bits, stream,
     )
     return out

@@ -56,19 +56,176 @@ def _operands(cuda, mul, M, K, N, dtype, seed):
     return g, x, w
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("mul", list(MULS))
-@pytest.mark.parametrize("M,K,N", [(4, 2048, 256), (1, 7, 5), (9, 130, 129), (33, 300, 1000)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k1_bitwise(cuda, mul, M, K, N, dtype):
-    """K1 against its plain version: bitwise (both sums are exact)."""
-    _, x, w = _operands(cuda, mul, M, K, N, dtype, M + K + N)
-    _, drop, mulf = MULS[mul]
+# K1's routes: (multiplier, operand bits, dropped bits).  At M > 4 the
+# truncated product of at most 7-bit operands with at most 4 dropped bits
+# runs on the int8 tensor cores, the rest on the CUDA cores; M <= 4 takes
+# K2's decode contraction.
+K1_ROUTES = [("approx_mult", 7, 4), ("approx_mult", 7, 2), ("approx_mult", 7, 0),
+             ("approx_mult", 8, 4), ("approx_mult", 7, 6), ("log_mult", 8, 0)]
+
+
+def _k1_operands(cuda, bits, M, K, N, dtype, seed):
+    """Integer operands of at most ``bits`` bits, with both extremes: the
+    first entries of x's row 0 and w's column 0 are +-(2^bits - 1)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    hi = (1 << bits) - 1
+    x = torch.randint(-hi, hi + 1, (M, K), generator=g, device=cuda)
+    w = torch.randint(-hi, hi + 1, (K, N), generator=g, device=cuda)
+    ext = torch.tensor([hi, -hi, hi, -hi], device=cuda)[: min(K, 4)]
+    x[0, : ext.numel()] = ext
+    w[: ext.numel(), 0] = ext
+    return x.to(dtype), w.to(dtype)
+
+
+def _k1_check(cuda, mul, bits, drop, M, K, N, dtype, seed):
+    x, w = _k1_operands(cuda, bits, M, K, N, dtype, seed)
+    mulf = plain_multiplier(mul, drop)
     before = build.LAUNCHES[f"elementwise_matmul[{mul}]"]
-    got = elementwise_matmul_cuda(x, w, mul, drop)
+    got = elementwise_matmul_cuda(x, w, mul, drop, bits)
     torch.cuda.synchronize()
     assert build.LAUNCHES[f"elementwise_matmul[{mul}]"] == before + 1
-    torch.testing.assert_close(got, ref.elementwise_matmul_ref(x, w, mulf), rtol=0, atol=0)
+    want = ref.elementwise_matmul_ref(x, w, mulf)
+    assert float(want.abs().max()) > 0
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mul,bits,drop", K1_ROUTES)
+@pytest.mark.parametrize("M,K,N", [(4, 2048, 256), (1, 7, 5), (9, 130, 129), (33, 300, 1000),
+                                   (5, 70, 45), (16, 2048, 2048), (65, 1000, 520), (64, 37, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_bitwise(cuda, mul, bits, drop, M, K, N, dtype):
+    """K1 on integer operands, every route, against its plain version:
+    bitwise (both sums are exact), with K not a multiple of the tiles and N
+    not a multiple of the copies, called twice (the accumulators come back
+    clear)."""
+    for _ in range(2):
+        _k1_check(cuda, mul, bits, drop, M, K, N, dtype, M + K + N)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mul,bits,drop", K1_ROUTES)
+@pytest.mark.parametrize("big", [200.0, -128.0, 127.5, 256.0])
+def test_k1_refuses_operands_past_its_bits(cuda, mul, bits, drop, big):
+    """K1's integer entry refuses an operand past 2^bits - 1 (after the
+    kernel's rounding, half to even: 127.5 is 128) in x or in w, on every
+    route, at M = 64 (the tensor-core route at 7 bits) and M = 4, and takes
+    the extremes +-(2^bits - 1) (test_k1_bitwise)."""
+    x, w = _k1_operands(cuda, bits, 64, 96, 40, torch.float32, 3)
+    past = abs(big) >= (1 << bits) - 0.5
+    for M in (64, 4):
+        for which in ("x", "w"):
+            a, b = x[:M].clone(), w.clone()
+            (a if which == "x" else b)[1, 2] = big
+            if past:
+                with pytest.raises(ValueError, match="operands of"):
+                    elementwise_matmul_cuda(a, b, mul, drop, bits)
+            else:  # taken; the plain version multiplies 127.5 as a float, not as 128
+                got = elementwise_matmul_cuda(a, b, mul, drop, bits)
+                a, b = torch.round(a), torch.round(b)
+                want = ref.elementwise_matmul_ref(a, b, plain_multiplier(mul, drop))
+                torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048),
+                                 (2048, 151936)])
+@pytest.mark.parametrize("mul,bits,drop", [("approx_mult", 7, 4), ("log_mult", 8, 0)])
+def test_k1_serving_shapes(cuda, K, N, mul, bits, drop):
+    """K1 at the five qwen2.5-3b sites, bf16, M = 1, 5, 64, 65 and 512:
+    bitwise to its plain version."""
+    for M in (1, 5, 64, 65, 512):
+        _k1_check(cuda, mul, bits, drop, M, K, N, torch.bfloat16, M + K)
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048),
+                                 (2048, 151936)])
+@pytest.mark.parametrize("mul", ["approx_mult", "log_mult"])
+def test_k1_quantized_prefill_route(cuda, K, N, mul):
+    """The prefill projection on the operands themselves (M > 4: the scale
+    pass, the tensor-core or CUDA-core contraction, the finishing pass) at
+    the five sites, M = 5, 16, 64, 65 and 512, bf16, on edge operands:
+    bitwise to int_operand_matmul_fused_ref with the empty epilogue, one
+    launch counted on the prefill route's counter."""
+    bits, perforate = QUANT_MULS[mul]
+    mulf = plain_multiplier(mul, 2 * perforate)
+    key = f"elementwise_matmul[{mul},quantized]"
+    for M in (5, 16, 64, 65, 512):
+        _, x, w = _edge_operands(cuda, M, K, N, torch.bfloat16, M + K + N)
+        before = build.LAUNCHES[key]
+        got = int_operand_matmul_fused_cuda(x, w, bits, mul, {}, torch.bfloat16, 2 * perforate)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES[key] == before + 1
+        want = int_operand_matmul_fused_ref(x, w, bits, mulf, {}, torch.bfloat16)
+        assert float(want.float().abs().max()) > 0
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        del x, w, got, want
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mul,bits,perforate", [("approx_mult", 7, 2), ("approx_mult", 7, 0),
+                                                ("approx_mult", 6, 1), ("approx_mult", 8, 2),
+                                                ("approx_mult", 7, 3), ("log_mult", 8, 0),
+                                                ("log_mult", 5, 0)])
+@pytest.mark.parametrize("M,K,N", [(5, 70, 45), (65, 1000, 520), (64, 2048, 1003), (130, 37, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_quantized_route_ragged(cuda, mul, bits, perforate, M, K, N, dtype):
+    """The prefill projection on the operands themselves off the serving
+    shapes, every route (tensor cores for approx_mult of at most 7 bits and
+    perforate at most 2), float32 and bf16, with chip and correction terms,
+    called twice: bitwise to its plain version."""
+    g, x, w = _edge_operands(cuda, M, K, N, dtype, M + K + N)
+    mulf = plain_multiplier(mul, 2 * perforate)
+    for epi in ({}, _epilogue("all", g, cuda, N, dtype)):
+        want = int_operand_matmul_fused_ref(x, w, bits, mulf, epi, dtype)
+        for _ in range(2):
+            got = int_operand_matmul_fused_cuda(x, w, bits, mul, epi, dtype, 2 * perforate)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mul", ["approx_mult", "log_mult"])
+def test_k1_launches_by_route(cuda, mul):
+    """The prefill projection is three launches of vpu_matmul.cu (the scale
+    pass, the contraction, the finishing pass) and no memset; K1's integer
+    entry is three on the tensor-core route (A', the contraction, the
+    conversion) and two on the CUDA cores, beside the PyTorch reductions of
+    its operand-range check.  The decode projection (M = 4) counts on K2's
+    counter."""
+    from torch.autograd import DeviceType
+
+    bits, perforate = QUANT_MULS[mul]
+    tc = mul == "approx_mult"
+    _, x, w = _edge_operands(cuda, 64, 2048, 11008, torch.bfloat16, 3)
+
+    def kernels(fn):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+
+    before = dict(build.LAUNCHES)
+    names = kernels(lambda: int_operand_matmul_fused_cuda(x, w, bits, mul, {}, torch.bfloat16,
+                                                          2 * perforate))
+    assert build.LAUNCHES[f"elementwise_matmul[{mul},quantized]"] == \
+        before[f"elementwise_matmul[{mul},quantized]"] + 2
+    assert len(names) == 3 and all("repro_vpu::" in n for n in names), names
+    assert any(("mma_contract" if tc else "contract") in n for n in names), names
+    xi, wi = x.float().round(), w.float().mul(100).round().clamp(-127, 127)
+    names = kernels(lambda: elementwise_matmul_cuda(xi, wi, mul, 2 * perforate, bits))
+    assert len([n for n in names if "repro_vpu::" in n]) == (3 if tc else 2), names
+    before = dict(build.LAUNCHES)
+    int_operand_matmul_fused_cuda(x[:4].contiguous(), w, bits, mul, {}, torch.bfloat16,
+                                  2 * perforate)
+    assert build.LAUNCHES[f"elementwise_matmul_fused[{mul}]"] == \
+        before[f"elementwise_matmul_fused[{mul}]"] + 1
+    assert build.LAUNCHES[f"elementwise_matmul[{mul},quantized]"] == \
+        before[f"elementwise_matmul[{mul},quantized]"]
 
 
 @pytest.mark.gpu
@@ -499,6 +656,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # a CPU operand
         elementwise_matmul_cuda(x, torch.ones((8, 4)), "log_mult")
     w = torch.ones((8, 4), device=cuda)
+    with pytest.raises(ValueError):  # operands of more than 8 bits
+        elementwise_matmul_cuda(x, w, "approx_mult", 4, 9)
     with pytest.raises(ValueError):  # an epilogue vector of the wrong length
         elementwise_matmul_fused_cuda(x, w, "log_mult", torch.ones(4, device=cuda),
                                       {"coladd": torch.ones(3, device=cuda)}, torch.float32)

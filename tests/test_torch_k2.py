@@ -126,14 +126,14 @@ def test_plain_version_matches_composed_path_and_reference(mul, dtype, case):
                                        tepi, tdt)
     if mul == "approx_mult":
         via_ops = ops.approx_mult_matmul_quantized(tx, tw, bits, perforate, tepi, tdt)
-        xi, wi, pre = tbe._int_operand_quantize(tx, tw, bits)
+        xi, wi, pre = int_operand_quantize(tx, tw, bits)
         composed = ops.approx_mult_matmul_fused(xi, wi, bits, perforate, pre, tepi, tdt)
         fused_emulate = tbe._fused_emulate_approx_mult(tx, tw, ApproxMultParams(), None, tepi)
         with jax.disable_jit():
             want = jbe._fused_emulate_approx_mult(jx, jw, JAMP(), None, jepi)
     else:
         via_ops = ops.log_matmul_quantized(tx, tw, bits, tepi, tdt)
-        xi, wi, pre = tbe._int_operand_quantize(tx, tw, bits)
+        xi, wi, pre = int_operand_quantize(tx, tw, bits)
         composed = ops.log_matmul_fused(xi, wi, pre, tepi, tdt)
         fused_emulate = tbe._fused_emulate_log_mult(tx, tw, LogMultParams(), None, tepi)
         with jax.disable_jit():

@@ -77,6 +77,7 @@ from repro_torch.core.registry import concat_planes
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import sc_matmul as _sc
 from repro_torch.kernels.analog_matmul import analog_matmul_fused_ref
+from repro_torch.kernels.vpu_matmul import int_operand_quantize
 from repro_torch.models import build_model as t_build
 from repro_torch.runtime.engine import Engine as TEngine
 from repro_torch.runtime.engine import synthetic_requests
@@ -465,7 +466,7 @@ def test_value_domain_dtypes_and_bits():
         _, _, j_pre = jbe._int_operand_quantize(jx, jw, 7)
     xp, xn, wp, wn, rescale = tbe._stream_planes(tx, tw, SCParams())
     axp, _, _, _, prescale = tbe._array_planes(tx, tw, AnalogParams())
-    _, _, t_pre = tbe._int_operand_quantize(tx, tw, 7)
+    _, _, t_pre = int_operand_quantize(tx, tw, 7)
     assert j_ratio.dtype == j_rescale.dtype == jxp.dtype == jnp.bfloat16
     assert rescale.dtype == xp.dtype == wn.dtype == prescale.dtype == torch.bfloat16
     assert (torch.ones(2) * rescale).dtype == torch.float32  # r * rescale

@@ -35,11 +35,16 @@ in plain torch in front of the kernel, the call's device time is that
 prologue's kernels and K2's together, so ``device_ms`` counts every
 kernel of the call and ``launches`` how many there were; ``by_kernel``
 splits the device time by kernel (the first word of its name that
-identifies it).  K1 takes random integer operands (|x| <= 127 for the
-truncated multiplier, 255 for Mitchell's) at M = ``--m`` (default 64; at
-M <= 4 its contraction is the tile configuration that K2 used before it
-took in the quantisation).  Prints the card's
-name and power limit, then one JSON line per shape with the bytes bound
+identifies it).  K1 is timed on two routes at M = ``--m`` (default 64): ``int``,
+the integer entry on random integer operands (|x| <= 127 and 7 bits for the
+truncated multiplier, 255 and 8 bits for Mitchell's; at M <= 4 it runs K2's
+decode contraction), and ``quantized``, the prefill projection through the
+backend's emulator on bf16 activations and fan-in-scaled weights (as K2: in
+a tree that quantises in plain torch in front of K1, that prologue is in the
+call's device time); its row adds the operations bound (``ops_bound_ms``:
+the truncated product as int8 tensor-core multiply-adds over 16 slots a k,
+Mitchell's as 3 instructions a product and 2 a weight at the dispatch
+rate).  Prints the card's name and power limit, then one JSON line per shape with the bytes bound
 (each plane, x and the output once, at 3.35 TB/s), the device time's
 share of it and, for K5, the word-build floor: ``K5_INSTR_PER_PAIR``
 instructions per weight pair at 128 lanes x 132 SMs x 1.98 GHz.
@@ -60,6 +65,14 @@ LANE_INSTR_S = 132 * 128 * 1.98e9  # H100 SXM: SMs x lanes x boost clock
 K5_INSTR_PER_PAIR = 63  # K5's word build and OR-accumulation per weight pair (sc_matmul.cu)
 DECODE_M, PREFILL_M = 4, 64
 F64_TENSOR_OPS_S = 67e12  # H100 SXM float64 tensor-core rate (data sheet)
+INT8_TENSOR_OPS_S = 1979e12  # H100 SXM dense int8 tensor-core rate (data sheet)
+INSTR_S = 132 * 128 * 1.98e9  # H100 SXM: SMs x instructions dispatched a clock x boost clock
+# Mitchell's product in K1's CUDA-core contraction: an integer add, a LOP3
+# and an FADD (SASS of csrc/vpu_matmul.cu's contract<1, ...>), none of
+# whose pipes is busier than dispatch; and each weight's preparation, shared
+# by the M rows (its level-table load and the fold of its sign)
+MITCHELL_INSTR_PER_PRODUCT = 3
+INSTR_PER_WEIGHT = 2
 BITS = [32]  # SC stream length (--bits)
 # (K, N) of every dense() site of qwen2.5-3b: q/o, k/v, gate/up, down, lm_head
 SHAPES = [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048), (2048, 151936)]
@@ -171,13 +184,29 @@ def k2_call(K, N, g, dev, mul):
     return lambda: backends._fused_emulate_log_mult(x, w, LogMultParams(), None, {})
 
 
-def k1_call(K, N, g, dev, mul, M):
-    """K1 on integer operands (any tree)."""
+def k1_call(K, N, g, dev, mul, route, M):
+    """K1 on integer operands (route "int"), or the prefill projection of a
+    multiplier-error backend through its emulator on bf16 activations and
+    fan-in-scaled weights (route "quantized": in a tree that quantises in
+    plain torch in front of K1, that prologue and K1; any tree)."""
+    import inspect
+
+    from repro_torch.configs.base import ApproxMultParams, LogMultParams
+    from repro_torch.core import backends
     from repro_torch.kernels.vpu_matmul import elementwise_matmul_cuda
 
-    hi, drop = (127, 4) if mul == "approx_mult" else (255, 0)
+    if route == "quantized":
+        w = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).to(torch.bfloat16)
+        x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+        if mul == "approx_mult":
+            return lambda: backends._emulate_approx_mult(x, w, ApproxMultParams(), None)
+        return lambda: backends._emulate_log_mult(x, w, LogMultParams(), None)
+    bits, drop = (7, 4) if mul == "approx_mult" else (8, 0)
+    hi = (1 << bits) - 1
     x = torch.randint(-hi, hi + 1, (M, K), generator=g, device=dev).to(torch.bfloat16)
     w = torch.randint(-hi, hi + 1, (K, N), generator=g, device=dev).to(torch.bfloat16)
+    if "bits" in inspect.signature(elementwise_matmul_cuda).parameters:
+        return lambda: elementwise_matmul_cuda(x, w, mul, drop, bits)
     return lambda: elementwise_matmul_cuda(x, w, mul, drop)
 
 
@@ -185,8 +214,18 @@ def k1_call(K, N, g, dev, mul, M):
 KERNELS = {"k4": (k4_call, "repro_sc::"), "k5": (k5_call, "repro_sc::"),
            "k6": (k6_call, "repro_analog::"), "k7": (k7_call, "repro_analog::"),
            "k2": (k2_call, ""), "k1": (k1_call, "repro_vpu::"), "prng": (prng_call, "")}
-BY_KERNEL = ("scale_pass", "decode_contract", "prefill_contract", "contract", "sum_levels",
-             "finish", "to_float")
+BY_KERNEL = ("scale_pass", "decode_contract", "mma_contract", "expand_slots", "contract",
+             "sum_levels", "finish", "to_float")
+
+
+def k1_ops_bound_ms(mul, M, K, N) -> float:
+    """K1's operations bound: the truncated product as int8 tensor-core
+    multiply-adds over 16 slots a k (2 operations each); Mitchell's as its
+    instructions at the dispatch rate (MITCHELL_INSTR_PER_PRODUCT a product,
+    INSTR_PER_WEIGHT a weight; as chip_smoke.py counts them)."""
+    if mul == "approx_mult":
+        return 2.0 * M * 16 * K * N / INT8_TENSOR_OPS_S * 1e3
+    return (M * MITCHELL_INSTR_PER_PRODUCT + INSTR_PER_WEIGHT) * K * N / INSTR_S * 1e3
 
 
 def trace_split(fn, iters: int):
@@ -230,11 +269,15 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(1)
     two_muls = args.kernel in ("k1", "k2")
     variants = [("approx_mult",), ("log_mult",)] if two_muls else [()]
+    if args.kernel == "k1":
+        variants = [(mul, route) for mul in ("approx_mult", "log_mult")
+                    for route in ("int", "quantized")]
     for (K, N), extra in ((shape, v) for shape in SHAPES for v in variants):
         if args.kernel == "k2":
             run, tables = make(K, N, g, dev, *extra), None
         elif args.kernel == "k1":
             run, tables = make(K, N, g, dev, *extra, args.m), None
+            key = "repro_vpu::" if extra[1] == "int" else ""
         elif args.kernel == "k6":
             run, tables = make(K, N, g, dev, args.m)
         else:
@@ -252,8 +295,9 @@ def main() -> int:
         M = {"k4": PREFILL_M, "k6": args.m, "k1": args.m}.get(args.kernel, DECODE_M)
         if args.kernel == "k2":  # x, w and the output, bf16
             bound_ms = (2 * M * K + 2 * K * N + 2 * M * N) / HBM_BYTES_S * 1e3
-        elif args.kernel == "k1":  # x, w (bf16) and the float32 output
-            bound_ms = (2 * M * K + 2 * K * N + 4 * M * N) / HBM_BYTES_S * 1e3
+        elif args.kernel == "k1":  # x, w (bf16) and the output (int: float32)
+            bound_ms = (2 * M * K + 2 * K * N + (4 if extra[1] == "int" else 2) * M * N) \
+                / HBM_BYTES_S * 1e3
         elif args.kernel == "k6":  # x [M, 2K] and two halves (bf16), the float32 output
             bound_ms = (2 * M * 2 * K + 2 * 2 * K * N + 4 * M * N) / HBM_BYTES_S * 1e3
         elif args.kernel == "prng":  # ux and uw written once, float32
@@ -267,6 +311,9 @@ def main() -> int:
             if two_muls:
                 row["mul"] = extra[0]
             row["launches"], row["by_kernel"] = trace_split(run, args.iters)
+        if args.kernel == "k1":
+            row["route"] = extra[1]
+            row["ops_bound_ms"] = k1_ops_bound_ms(extra[0], M, K, N)
         if args.kernel == "k6":
             row["f64_ops_bound_ms"] = 2.0 * M * 2 * K * N / F64_TENSOR_OPS_S * 1e3
         if args.kernel in ("k4", "k5", "prng"):
