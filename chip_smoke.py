@@ -16,8 +16,11 @@ checkout of the repository.  Phases, each synchronised before the next:
    prefill projection, 64 rows) and K2 (decode) run as the serving path
    calls them, on bf16 activations and weights that they quantise
    themselves, and on their integer-operand entries (K1's truncated
-   product on the int8 tensor cores).  The SC and analog operands come from the emulators' own
-   value-domain code on random bf16 activations and weights.  K5 takes
+   product on the int8 tensor cores).  So does the SC prefill projection
+   (K4's function for both polarities, the planes formed in its loads),
+   held at 32 and 512-bit streams at every site.  K4's one-polarity entry,
+   K5, K6 and K7 take operands from the emulators' own value-domain code
+   on random bf16 activations and weights.  K5 takes
    the threshold tables of its draws built beforehand, as on the decode
    path, and the tables kernel is held bitwise against its plain version
    at each K5 site, as is the draws kernel (threefry, bitwise
@@ -61,18 +64,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate
-CUDA_CORE_OPS_S = 67e12  # H100 SXM float32 rate outside the tensor cores
-F64_TENSOR_OPS_S = 67e12  # H100 SXM float64 tensor-core rate (data sheet)
-# 32-bit integer instructions a second: at most half the float32 rate,
-# which counts each FMA as two operations
-INT_OPS_S = CUDA_CORE_OPS_S / 2
-INT8_TENSOR_OPS_S = 1979e12  # H100 SXM dense int8 tensor-core rate (data sheet)
-# H100 SXM instruction rates: SMs x lanes a clock x boost clock, for all
-# instructions dispatched (128 lanes an SM) and for the ALU pipe (64:
-# LOP3, IADD3, ISETP, SEL)
-INSTR_S = 132 * 128 * 1.98e9
-ALU_S = 132 * 64 * 1.98e9
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+# the card's rates and the profiler's device time, shared with
+# tools/time_kernel.py, profile_decode and the card tests
+from repro_torch.launch.measure import (  # noqa: E402
+    ALU_S,
+    B1_BIT_OPS_S,
+    CUDA_CORE_OPS_S,
+    F64_TENSOR_OPS_S,
+    HBM_BYTES_S,
+    INSTR_S,
+    INT8_TENSOR_OPS_S,
+    INT_OPS_S,
+    device_ms,
+)
+
 # instructions a product, (all, on the ALU pipe), from the SASS of
 # csrc/vpu_matmul.cu: Mitchell's product as the add of float32 bit patterns
 # of K1's contraction (an integer add, a LOP3, an FADD; the least count of
@@ -107,7 +113,10 @@ KERNEL_SOURCES = {
     "elementwise_matmul_fused[approx_mult]": ("vpu_matmul.cu", "vpu_matmul.py:228"),
     "elementwise_matmul_fused[log_mult]": ("vpu_matmul.cu", "vpu_matmul.py:228"),
     "flash_decode": ("flash_decode.cu", "flash_decode.py:98"),
-    "sc_matmul_packed": ("sc_matmul.cu", "sc_matmul.py:89"),
+    # K4's function for both polarities on the operands themselves (the SC
+    # prefill projection, the value-domain code in front of the reference's
+    # pallas_call taken in)
+    "sc_matmul_packed[quantized]": ("sc_matmul.cu", "sc_matmul.py:89"),
     "sc_matmul_packed_fused": ("sc_matmul.cu", "sc_matmul.py:235"),
     "analog_matmul": ("analog_matmul.cu", "analog_matmul.py:87"),
     "analog_matmul_fused": ("analog_matmul.cu", "analog_matmul.py:233"),
@@ -119,7 +128,8 @@ KERNEL_SOURCES = {
     "sc_draws": ("prng.cu", "ops.py:97"),
 }
 # the kernels the serving path launches (the integer-operand entries of K1
-# and K2 and the packed-words entry of K4 are checks off the path)
+# and K2, K4's one-polarity entry on given planes and its packed-words
+# entry are checks off the path)
 PATH_KERNELS = tuple(KERNEL_SOURCES)
 EMULATED = ("log_mult", "approx_mult", "sc", "analog")
 
@@ -143,39 +153,6 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-TRACE_TRIES = 3  # profiler traces of one timing before it counts as failed
-
-
-def device_ms(fn, iters: int, key: str) -> float:
-    """Device milliseconds per call of the kernels whose names contain
-    ``key`` (a CUDA source's namespace), from a ``torch.profiler`` trace of
-    ``iters`` calls after one warm-up: the kernel's own time, without the
-    host time between calls that ``cuda_ms`` sees at small shapes.
-
-    Every call launches at least one such kernel, so a trace that holds
-    fewer than ``iters`` of them lost events: it is taken again, and after
-    ``TRACE_TRIES`` short traces this raises (it never reports 0)."""
-    from torch.autograd import DeviceType
-
-    fn()
-    torch.cuda.synchronize()
-    seen = []
-    for _ in range(TRACE_TRIES):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA and key in ev.name]
-        if len(evs) >= iters:
-            if seen:
-                print(f"[trace] {key}: {seen} events in earlier traces of {iters} calls, "
-                      f"{len(evs)} in this one", flush=True)
-            return sum(ev.time_range.elapsed_us() for ev in evs) / 1e3 / iters
-        seen.append(len(evs))
-    raise RuntimeError(f"profiler traces of {iters} calls held {seen} kernels named "
-                       f"{key!r}: fewer than the calls, so the device time is unknown")
 
 
 def bound(nbytes: float, ops: float, ops_s: float = CUDA_CORE_OPS_S):
@@ -330,27 +307,46 @@ def _site_shapes(cfg):
     return [(D, H), (D, KVd), (D, F_), (F_, D), (D, V)]
 
 
+def _sc_work(kname, M, K, N, bits):
+    """Bytes (each input read once, each output written once), AND bit
+    products (row, port, column, stream bit, polarity) and stream words
+    built (a table lookup each) of K4's or K5's function."""
+    P, W = 2 * K, bits // 32
+    pol = 1 if kname == "sc_matmul_packed" else 2
+    draws = 4 * bits + 4 * P * bits  # ux and uw, float32: the draws, not their tables
+    if "quantized" in kname:  # the raw bf16 x [M, K] and w, the bf16 output
+        nbytes = 2 * M * K + 2 * K * N + draws + 2 * M * N
+        built = K * N * W  # one word pair a weight for both polarities
+    else:  # x [M, 2K] and the two bf16 weight halves
+        nbytes = 2 * M * P + 2 * K * N * 2 + draws + (2 if kname.endswith("fused") else 4) * M * N
+        built = pol * P * N * W
+    return nbytes, pol * M * P * N * bits, built + M * P * W
+
+
+def _sc_alu_ms(kname, M, K, N, bits):
+    """K4's or K5's operations on the ALU pipe alone, as their kernels do
+    them: a LOP3 (AND, then OR) per 32 bit products, one per word built."""
+    _, products, built = _sc_work(kname, M, K, N, bits)
+    return (products / 32 + built) / ALU_S * 1e3
+
+
 def _sc_analog_bound(kname, M, K, N, bits):
     """Bytes each input read once and each output written once; the
     operations each kernel's function needs (see PERF.md)."""
     from repro_torch.kernels.sc_matmul import table_words
 
-    P, W = 2 * K, bits // 32
-    planes = 2 * K * N * 2                      # the two bf16 weight halves
-    draws = 4 * bits + 4 * P * bits             # ux and uw, float32
     if kname == "sc_tables":
         # rank of each of a row's 64 thresholds among the 64, and its 65
         # masks of 64 bits each: comparisons per row
-        return bound(draws + 4 * table_words(K, bits), (K + 1) * W * (64 * 64 + 65 * 64))
+        W = bits // 32
+        return bound(4 * bits + 4 * 2 * K * bits + 4 * table_words(K, bits),
+                     (K + 1) * W * (64 * 64 + 65 * 64))
     if kname.startswith("sc"):
-        # K4 and K5 need the draws, not the port's tables of them (row sc_tables)
-        fused = kname.endswith("fused")
-        nbytes = 2 * M * P + planes + draws + (2 if fused else 4) * M * N
-        pol = 2 if fused else 1
-        # a LOP3 (AND, then OR) per (row, port, column, word) on the ALU
-        # pipe; one per stream word built
-        ops = pol * (M * P * N * W + P * N * W) + M * P * W
-        return bound(nbytes, ops, ALU_S)
+        # the bit products at the binary tensor cores' rate, the card's
+        # fastest unit for them; the words built on the ALU pipe (seconds,
+        # so at a rate of 1)
+        nbytes, products, built = _sc_work(kname, M, K, N, bits)
+        return bound(nbytes, max(products / B1_BIT_OPS_S, built / ALU_S), 1.0)
     return bound(*_analog_work(kname, M, K, N), F64_TENSOR_OPS_S)
 
 
@@ -381,6 +377,8 @@ def phase_sc_analog(dev, cfg):
         sc_matmul_cuda,
         sc_matmul_fused_cuda,
         sc_matmul_fused_ref,
+        sc_matmul_quantized_cuda,
+        sc_matmul_quantized_ref,
         sc_matmul_words_cuda,
         sc_tables_cuda,
         sc_tables_ref,
@@ -402,6 +400,36 @@ def phase_sc_analog(dev, cfg):
                "bound_by": b_by, "library_ms": None}
         print(f"[kernels] {json.dumps(row)}", flush=True)
         return row
+
+    def _prefill_rows(K, N, w):
+        """The SC prefill projection as the serving path calls it (raw bf16
+        activations and weights, draws whose tables it builds) against its
+        plain version, bitwise, at 32 and 512-bit streams; timed at 32 bits
+        (and 512 at the reported shape), where each call builds its tables
+        as each prefill projection does."""
+        kname, M, rows = "sc_matmul_packed[quantized]", PREFILL_M, {}
+        x = torch.randn((M, K), generator=g, device=dev).to(bf)
+        for bits in (sc_p.bits, SC_LONG_BITS):
+            ux, uw = ops.sc_draws((3, K, N, M), 2 * K, bits, dev)
+            run = lambda: sc_matmul_quantized_cuda(x, w, sc_p.gain, bits, SCDraws(ux, uw))
+            plain = lambda: sc_matmul_quantized_ref(x, w, sc_p.gain, bits, (ux, uw))
+            want = plain()
+            _hold(kname if bits == sc_p.bits else f"{kname}@{bits}", (M, K, N), run(), want)
+            if not bool(want.float().abs().max() > 0):
+                raise AssertionError(f"{kname} {M}x{K}x{N}: every output is zero")
+            del want
+            if bits != sc_p.bits and (K, N) != rep:
+                continue
+            iters = 3 if bits != sc_p.bits or M * 2 * K * N > 2e9 else 10
+            b_ms, b_by = _sc_analog_bound(kname, M, K, N, bits)
+            row = {"name": kname if bits == sc_p.bits else f"{kname}@{bits}",
+                   "shape": [M, K, N], "max_abs_err": 0.0, "ms": cuda_ms(run, iters),
+                   "device_ms": device_ms(run, iters, "repro_sc::"),
+                   "plain_ms": cuda_ms(plain, 1), "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": None, "alu_bound_ms": _sc_alu_ms(kname, M, K, N, bits)}
+            print(f"[kernels] {json.dumps(row)}", flush=True)
+            rows[bits] = row
+        return rows[sc_p.bits]
 
     def _draws_row(K, N, path, bits):
         """The draws kernel against its plain version on the card and on
@@ -437,6 +465,9 @@ def phase_sc_analog(dev, cfg):
     summary = {}
     for K, N in _site_shapes(cfg):
         w = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).to(bf)
+        row = _prefill_rows(K, N, w)
+        if (K, N) == rep:
+            summary["sc_matmul_packed[quantized]"] = row
         for kname, M in (("sc_matmul_packed", PREFILL_M), ("sc_matmul_packed_fused", DECODE_M),
                          ("analog_matmul", PREFILL_M), ("analog_matmul_fused", DECODE_M)):
             x = torch.randn((M, K), generator=g, device=dev).to(bf)
@@ -511,6 +542,8 @@ def phase_sc_analog(dev, cfg):
                 nbytes, n_ops = _analog_work(kname, M, K, N)
                 row["bound_terms_ms"] = {"bytes": nbytes / HBM_BYTES_S * 1e3,
                                          "operations": n_ops / F64_TENSOR_OPS_S * 1e3}
+            else:
+                row["alu_bound_ms"] = _sc_alu_ms(kname, M, K, N, sc_p.bits)
             print(f"[kernels] {json.dumps(row)}", flush=True)
             if (K, N) == rep:
                 summary[kname] = row
@@ -530,7 +563,8 @@ def phase_sc_analog(dev, cfg):
                        "ms": cuda_ms(lambda: lcall(kern, {}), 3),
                        "device_ms": device_ms(lambda: lcall(kern, {}), 3, "repro_sc::"),
                        "plain_ms": cuda_ms(lambda: lcall(plain, {}), 1), "bound_ms": b_ms,
-                       "bound_by": b_by, "library_ms": None}
+                       "bound_by": b_by, "library_ms": None,
+                       "alu_bound_ms": _sc_alu_ms(kname, M, K, N, long)}
                 print(f"[kernels] {json.dumps(row)}", flush=True)
                 del ldraws, got, want
             del x, xp, xn, wp, wn, xcat, halves
@@ -695,7 +729,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
 
@@ -744,7 +777,7 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
-            **({"bound_terms_ms": row["bound_terms_ms"]} if "bound_terms_ms" in row else {}),
+            **{k: row[k] for k in ("bound_terms_ms", "alu_bound_ms") if k in row},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi(), flush=True)

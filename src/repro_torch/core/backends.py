@@ -7,10 +7,12 @@ The value-domain scaling — dynamic scales, split-unipolar planes,
 operand quantisation — runs in plain torch, op for op as in the
 reference (``torch.round`` rounds half to even like ``jnp.round``); the
 kernels in :mod:`repro_torch.kernels.ops` do the contractions.  The
-exception is approx_mult and log_mult: their kernels take the operands
+exceptions are approx_mult and log_mult, whose kernels take the operands
 themselves and quantise them on load, bit for bit as
 :func:`repro_torch.kernels.vpu_matmul.int_operand_quantize` does (K2 at
-decode, the prefill contractions at more than 4 rows).  Two details keep
+decode, the prefill contractions at more than 4 rows), and SC's prefill
+projection, whose kernel forms the probability planes on load, bit for bit
+as :func:`repro_torch.kernels.sc_matmul.stream_planes` does.  Two details keep
 the ops those of the reference:
 
 * A Python constant meets a tensor as a 0-dim tensor of the tensor's
@@ -41,6 +43,7 @@ from repro_torch.core.proxy import split_signed, tensor_scale
 from repro_torch.core.registry import BackendSpec, concat_planes, split_unipolar_contract
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import const
+from repro_torch.kernels.sc_matmul import stream_planes
 
 
 def fake_quant_unipolar(x, bits: int):
@@ -59,26 +62,23 @@ def _emulate_exact(x, w, p, rng):
 
 def _stream_planes(x, w, p: SCParams):
     """Per-tensor scales and the clipped probability planes of SC."""
-    sx = tensor_scale(x)
-    sw = tensor_scale(w)
-    xp, xn = split_signed(x * (const(p.gain, sx) / sx))
-    wp, wn = split_signed(w * (const(p.gain, sw) / sw))
-    xp, xn, wp, wn = (torch.clamp(t, 0.0, 1.0) for t in (xp, xn, wp, wn))
-    rescale = (sx * sw) / const(p.gain * p.gain, sx)
-    return xp, xn, wp, wn, rescale
+    return stream_planes(x, w, p.gain)
 
 
 def _emulate_sc(x, w, p: SCParams, rng):
     """Split-unipolar streams, AND multiply, OR accumulate: the positive
     output tree takes {xp*wp} U {xn*wn}, the negative {xp*wn} U {xn*wp},
     one accumulation per polarity over 2K ports, both against the same
-    generator sequences."""
-    xp, xn, wp, wn, rescale = _stream_planes(x, w, p)
-    draws = rng(2 * xp.shape[-1], p.bits, x.device)
-    r = split_unipolar_contract(
-        (xp, xn), (wp, wn), lambda a, b: kops.sc_matmul(a, b, p.bits, draws)
-    )
-    return (r * rescale).to(x.dtype)
+    generator sequences.  One call from the operands themselves: on the
+    CPU the plain composition (the planes, the two contractions, the
+    rescale), op for op the reference's; on the card one pass over the
+    weight for both polarities, the planes formed in the kernel's loads."""
+    K, N = w.shape
+    draws = rng(2 * K, p.bits, x.device)
+    # a tied lm_head's weight is a transposed view (not a qwen2.5-3b path)
+    y = kops.sc_matmul_quantized(x.reshape(-1, K).contiguous(), w.contiguous(), p.gain, p.bits,
+                                 draws)
+    return y.reshape(x.shape[:-1] + (N,))
 
 
 def _array_planes(x, w, p: AnalogParams):

@@ -63,10 +63,15 @@ SIGNATURES = {
     "sc_matmul": {
         # ux, uw, tab, K, bits, stream
         "sc_tables": (_P, _P, _P, _I, _I, _P),
-        # in_bf16, x, wa, wb, tab, xbits, acc, out, M, N, K, bits, stream
-        "sc_matmul": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # in_bf16, x, wa, wb, tab, acc, out, M, N, K, bits, stream
+        "sc_matmul": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         # xbits, wbits, acc, out, M, N, ports, bits, stream
         "sc_matmul_words": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # in_bf16, x, w, tab, hold, scales, acc_p, acc_n, out, M, N, K, bits,
+        # eps, gain, gain2, stream
+        "sc_matmul_quantized": (
+            _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P,
+        ),
         # in_bf16, out_bf16, x, wp, wn, tab, acc_p, acc_n, pre, gain, add,
         # coeffs, P, mean_scale, eps, out, M, N, K, bits, stream
         "sc_matmul_fused": (
@@ -113,7 +118,12 @@ LAUNCHES: Dict[str, int] = {
     "elementwise_matmul_fused[approx_mult,int]": 0,
     "elementwise_matmul_fused[log_mult,int]": 0,
     "flash_decode": 0,
+    # K4 on given probability planes, one polarity (the reference kernel's
+    # function): a check entry, off the serving path
     "sc_matmul_packed": 0,
+    # K4's function for both polarities on the operands themselves, the SC
+    # value-domain code taken in: the serving path's prefill
+    "sc_matmul_packed[quantized]": 0,
     "sc_matmul_packed_fused": 0,
     # the generator draws of an SC key path (threefry), in front of the tables
     "sc_draws": 0,

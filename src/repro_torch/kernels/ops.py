@@ -73,6 +73,16 @@ def sc_matmul(xp, w, n_bits: int, draws):
     return kref.sc_matmul_ref(xp, w, n_bits, *draws)
 
 
+def sc_matmul_quantized(x, w, gain: float, n_bits: int, draws):
+    """The SC prefill projection from the operands themselves: x [M, K]
+    and w [K, N] scaled to probability planes at ``gain``, both output
+    polarities through SC streams against ``draws``, their difference
+    rescaled and cast to x's dtype."""
+    if _on_cuda(x, w, *draws):
+        return _sc.sc_matmul_quantized_cuda(x, w, gain, n_bits, draws)
+    return _sc.sc_matmul_quantized_ref(x, w, gain, n_bits, draws)
+
+
 def analog_matmul(x, w, array_size: int, adc_bits: int, adc_range: float):
     """Unipolar [M, 2K] @ [2K, N] with per-array ADC quantisation; ``w`` is
     the plane's ``(top, bottom)`` halves."""

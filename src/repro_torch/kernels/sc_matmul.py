@@ -1,8 +1,13 @@
 """Stochastic-computing contractions: the CUDA kernels K4/K5 and their plain
 versions (port of ``repro.kernels.sc_matmul``).
 
-``sc_matmul_cuda`` (K4) and ``sc_matmul_fused_cuda`` (K5) launch
-``csrc/sc_matmul.cu``.  They take the activation probabilities ``x``
+``sc_matmul_quantized_cuda`` is the SC prefill projection as the serving
+path runs it: K4's function for both polarities from the raw operands
+``x`` [M, K] and ``w`` [K, N], with the value-domain code in front of it
+(:func:`stream_planes`) taken in: three launches, no plain-torch op over
+the weight.  ``sc_matmul_cuda`` (K4 on given planes, one polarity) and
+``sc_matmul_fused_cuda`` (K5) launch
+``csrc/sc_matmul.cu`` too.  They take the activation probabilities ``x``
 [M, 2K], the weight probability plane as its two [K, N] halves
 ``(top, bottom)`` (read in place: the reference's ``concatenate``s are
 never built), and the generator draws ``(ux, uw)``: ``ux`` [1, bits]
@@ -16,9 +21,10 @@ for the call.  ``sc_matmul_words_cuda`` is K4's contraction on
 pre-packed words, the reference kernel's own interface, for checking the
 contraction alone.
 
-The plain versions are :func:`repro_torch.kernels.ref.sc_matmul_ref`
-(K4), :func:`sc_matmul_fused_ref` (K5) and :func:`sc_tables_ref` (the
-tables, bit for bit as the kernel lays them out).
+The plain versions are :func:`sc_matmul_quantized_ref` (the prefill
+projection), :func:`repro_torch.kernels.ref.sc_matmul_ref` (K4),
+:func:`sc_matmul_fused_ref` (K5) and :func:`sc_tables_ref` (the tables,
+bit for bit as the kernel lays them out).
 """
 from __future__ import annotations
 
@@ -26,10 +32,11 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.core.proxy import OPERAND_EPS, split_signed, tensor_scale
 from repro_torch.kernels import build
 from repro_torch.kernels.epilogue import apply_epilogue
-from repro_torch.kernels.ref import sc_matmul_ref
-from repro_torch.kernels.vpu_matmul import epilogue_operands
+from repro_torch.kernels.ref import const, sc_matmul_ref
+from repro_torch.kernels.vpu_matmul import _in_dtype, epilogue_operands
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KEYS = 64       # thresholds of one table row: word w of sequences k and k + K
@@ -126,6 +133,34 @@ def sc_tables_ref(ux, uw):
     return torch.cat([keys, masks.flatten(-2), entries, pad], dim=-1).reshape(-1)
 
 
+def stream_planes(x, w, gain: float):
+    """The SC emulator's value-domain code (``repro.core.backends.
+    _emulate_sc``): per-tensor scales, the clipped probability planes of x
+    and w at ``gain``, and the rescale ``(sx * sw) / gain^2``, each op
+    rounded to the operands' dtype as JAX's weak typing rounds it."""
+    sx = tensor_scale(x)
+    sw = tensor_scale(w)
+    xp, xn = split_signed(x * (const(gain, sx) / sx))
+    wp, wn = split_signed(w * (const(gain, sw) / sw))
+    xp, xn, wp, wn = (torch.clamp(t, 0.0, 1.0) for t in (xp, xn, wp, wn))
+    rescale = (sx * sw) / const(gain * gain, sx)
+    return xp, xn, wp, wn, rescale
+
+
+def sc_matmul_quantized_ref(x, w, gain: float, n_bits: int, draws):
+    """The SC prefill projection's plain version, op for op the
+    reference's: :func:`stream_planes`, the stream contraction of each
+    polarity, w_pos = [wp; wn] and w_neg = [wn; wp] (``sc_matmul_ref``),
+    then ``(r_p - r_n) * rescale`` cast to x's dtype.  x [M, K], w [K, N];
+    ``draws`` is ``(ux, uw)``."""
+    xp, xn, wp, wn, rescale = stream_planes(x, w, gain)
+    xcat = torch.cat([xp, xn], dim=-1)
+    ux, uw = draws
+    r = (sc_matmul_ref(xcat, (wp, wn), n_bits, ux, uw)
+         - sc_matmul_ref(xcat, (wn, wp), n_bits, ux, uw))
+    return (r * rescale).to(x.dtype)
+
+
 def sc_matmul_fused_ref(x, w: Tuple, n_bits: int, draws, prescale, epi: Dict, out_dtype):
     """K5's plain version: both polarities, w_pos = [wp; wn] and w_neg =
     [wn; wp], ``r_p - r_n`` times the prescale, cast to ``out_dtype``,
@@ -137,22 +172,30 @@ def sc_matmul_fused_ref(x, w: Tuple, n_bits: int, draws, prescale, epi: Dict, ou
 
 
 def _check(x, w: Tuple, n_bits: int, ux, uw):
+    """K4's and K5's operands: x [M, 2K] and the plane's two [K, N] halves."""
     top, bottom = w
-    tensors = (x, top, bottom, ux, uw)
-    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
-        raise ValueError(
-            f"CUDA kernel needs every operand on one CUDA device; got "
-            f"{[str(t.device) for t in tensors]}"
-        )
     K, N = top.shape if top.dim() == 2 else (-1, -1)
     if x.dim() != 2 or tuple(bottom.shape) != (K, N) or x.shape[1] != 2 * K:
         raise ValueError(
             f"need x [M, 2K] and two [K, N] halves; got {tuple(x.shape)}, "
             f"{tuple(top.shape)}, {tuple(bottom.shape)}"
         )
-    if not (x.dtype == top.dtype == bottom.dtype) or x.dtype not in _DTYPE_CODE:
-        raise ValueError(f"x and the halves must share float32 or bfloat16; got "
-                         f"{x.dtype}, {top.dtype}, {bottom.dtype}")
+    _check_operands((x, top, bottom), K, n_bits, ux, uw)
+
+
+def _check_operands(operands, K: int, n_bits: int, ux, uw):
+    """One CUDA device, one dtype (float32 or bfloat16) for the operands,
+    float32 draws ux [1, n_bits] and uw [2K, n_bits], all contiguous."""
+    tensors = (*operands, ux, uw)
+    if tensors[0].device.type != "cuda" or any(t.device != tensors[0].device for t in tensors):
+        raise ValueError(
+            f"CUDA kernel needs every operand on one CUDA device; got "
+            f"{[str(t.device) for t in tensors]}"
+        )
+    dtypes = {t.dtype for t in operands}
+    if len(dtypes) != 1 or not dtypes <= set(_DTYPE_CODE):
+        raise ValueError(f"the operands must share float32 or bfloat16; got "
+                         f"{[t.dtype for t in operands]}")
     if n_bits % 32 or n_bits <= 0:
         raise ValueError(f"n_bits must be a positive multiple of 32; got {n_bits}")
     if ux.numel() != n_bits or tuple(uw.shape) != (2 * K, n_bits):
@@ -161,7 +204,7 @@ def _check(x, w: Tuple, n_bits: int, ux, uw):
     if ux.dtype != torch.float32 or uw.dtype != torch.float32:
         raise ValueError("the generator draws must be float32")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("x, the halves and the draws must be contiguous (row-major)")
+        raise ValueError("the operands and the draws must be contiguous (row-major)")
 
 
 def _stream(dev) -> int:
@@ -190,23 +233,49 @@ def sc_tables_cuda(ux, uw):
     return tab
 
 
+# (device, stream) -> the word accumulators of K4, K5 and the prefill
+# projection (and the prefill scale pass's 3 words), int32, all zero between
+# calls: the contractions OR into them (or store whole words) and the
+# finishing passes clear what they have read, as the scale pass's last block
+# clears its words, so a call launches no memset.  Zero-filled when first
+# made or grown.
+_CLEAR: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _clear_words(dev, stream: int, n: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    buf = _CLEAR.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _CLEAR[key] = torch.zeros((n,), dtype=torch.int32, device=dev)
+    return buf
+
+
+def _launch_clearing(dev, stream: int, kernel: str, entry: str, *args) -> None:
+    try:
+        build.launch(kernel, "sc_matmul", entry, *args)
+    except RuntimeError:
+        _CLEAR.pop((dev.index, stream), None)  # the finishing pass may not have cleared them
+        raise
+
+
 def sc_matmul_cuda(x, w: Tuple, n_bits: int, draws):
     """K4: x [M, 2K] against the plane [top; bottom] -> [M, N] float32
     stream value (popcount / n_bits), against the streams of ``draws``
-    (:class:`SCDraws` or a plain ``(ux, uw)`` pair)."""
+    (:class:`SCDraws` or a plain ``(ux, uw)`` pair): two launches, and one
+    more where the draws' tables are not built yet."""
     draws = SCDraws.of(draws)
     _check(x, w, n_bits, *draws)
     top, bottom = w
     K, N = top.shape
-    M, W, dev = x.shape[0], n_bits // 32, x.device
+    M, dev = x.shape[0], x.device
     tab = draws.tables
-    xbits = torch.empty((M * 2 * K * W,), dtype=torch.int32, device=dev)
-    acc = torch.empty((M * N * W,), dtype=torch.int32, device=dev)
+    stream = _stream(dev)
+    acc = _clear_words(dev, stream, M * N * (n_bits // 32))
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    build.launch(
-        "sc_matmul_packed", "sc_matmul", "sc_matmul",
+    _launch_clearing(
+        dev, stream, "sc_matmul_packed", "sc_matmul",
         _DTYPE_CODE[x.dtype], x.data_ptr(), top.data_ptr(), bottom.data_ptr(), tab.data_ptr(),
-        xbits.data_ptr(), acc.data_ptr(), out.data_ptr(), M, N, K, n_bits, _stream(dev),
+        acc.data_ptr(), out.data_ptr(), M, N, K, n_bits, stream,
     )
     return out
 
@@ -224,30 +293,45 @@ def sc_matmul_words_cuda(xbits, wbits, n_bits: int):
                          f"{tuple(xbits.shape)}, {tuple(wbits.shape)}, {n_bits}")
     if not (xbits.is_contiguous() and wbits.is_contiguous()):
         raise ValueError("packed words must be contiguous")
-    N = wbits.shape[1]
-    acc = torch.empty((M * N * W,), dtype=torch.int32, device=xbits.device)
-    out = torch.empty((M, N), dtype=torch.float32, device=xbits.device)
-    build.launch(
-        "sc_matmul_packed[words]", "sc_matmul", "sc_matmul_words",
+    N, dev = wbits.shape[1], xbits.device
+    stream = _stream(dev)
+    acc = _clear_words(dev, stream, M * N * W)
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    _launch_clearing(
+        dev, stream, "sc_matmul_packed[words]", "sc_matmul_words",
         xbits.data_ptr(), wbits.data_ptr(), acc.data_ptr(), out.data_ptr(), M, N, K, n_bits,
-        torch.cuda.current_stream(xbits.device).cuda_stream,
+        stream,
     )
     return out
 
 
-# (device, stream) -> K5's word accumulators, int32, all zero between
-# calls: the contraction ORs into them and the finishing pass clears what it
-# has read, so a call launches no memset.  Zero-filled when first made or
-# grown.
-_CLEAR: Dict[Tuple[int, int], torch.Tensor] = {}
-
-
-def _clear_words(dev, stream: int, n: int) -> torch.Tensor:
-    key = (dev.index, stream)
-    buf = _CLEAR.get(key)
-    if buf is None or buf.numel() < n:
-        buf = _CLEAR[key] = torch.zeros((n,), dtype=torch.int32, device=dev)
-    return buf
+def sc_matmul_quantized_cuda(x, w, gain: float, n_bits: int, draws):
+    """The SC prefill projection on the card: x [M, K] and w [K, N]
+    (float32 or bfloat16, one dtype) -> [M, N] in x's dtype, bitwise
+    :func:`sc_matmul_quantized_ref`, against the streams of ``draws``
+    (:class:`SCDraws` or a plain ``(ux, uw)`` pair).  Three launches (the
+    scale pass, the contraction of both polarities, the finishing pass),
+    and one more where the draws' tables are not built yet."""
+    draws = SCDraws.of(draws)
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"need x [M, K] and w [K, N]; got {tuple(x.shape)}, {tuple(w.shape)}")
+    K, N = w.shape
+    _check_operands((x, w), K, n_bits, *draws)
+    M, dev = x.shape[0], x.device
+    tab = draws.tables
+    stream = _stream(dev)
+    words = M * N * (n_bits // 32)
+    acc = _clear_words(dev, stream, 2 * words + 3)  # both polarities, then the scale pass's 3
+    scales = torch.empty((3,), dtype=torch.float32, device=dev)
+    out = torch.empty((M, N), dtype=x.dtype, device=dev)
+    _launch_clearing(
+        dev, stream, "sc_matmul_packed[quantized]", "sc_matmul_quantized",
+        _DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(), tab.data_ptr(),
+        acc[2 * words:].data_ptr(), scales.data_ptr(), acc.data_ptr(), acc[words:].data_ptr(),
+        out.data_ptr(), M, N, K, n_bits, _in_dtype(OPERAND_EPS, x.dtype),
+        _in_dtype(gain, x.dtype), _in_dtype(gain * gain, x.dtype), stream,
+    )
+    return out
 
 
 def sc_matmul_fused_cuda(x, w: Tuple, n_bits: int, draws, prescale, epi: Dict, out_dtype):
@@ -267,14 +351,10 @@ def sc_matmul_fused_cuda(x, w: Tuple, n_bits: int, draws, prescale, epi: Dict, o
     words = M * N * (n_bits // 32)
     acc = _clear_words(dev, stream, 2 * words)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    try:
-        build.launch(
-            "sc_matmul_packed_fused", "sc_matmul", "sc_matmul_fused",
-            _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], x.data_ptr(), wp.data_ptr(),
-            wn.data_ptr(), tab.data_ptr(), acc.data_ptr(), acc[words:].data_ptr(),
-            *ops.pointers(), out.data_ptr(), M, N, K, n_bits, stream,
-        )
-    except RuntimeError:
-        _CLEAR.pop((dev.index, stream), None)  # the finishing pass may not have cleared them
-        raise
+    _launch_clearing(
+        dev, stream, "sc_matmul_packed_fused", "sc_matmul_fused",
+        _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], x.data_ptr(), wp.data_ptr(),
+        wn.data_ptr(), tab.data_ptr(), acc.data_ptr(), acc[words:].data_ptr(),
+        *ops.pointers(), out.data_ptr(), M, N, K, n_bits, stream,
+    )
     return out

@@ -11,7 +11,10 @@ of N tokens (``apply_model`` in MODEL mode with per-layer keys, as the
 engine's prefill runs it), for each N.  After ``WARMUP`` steps
 it times ``STEPS`` steps on the host clock (each ending in
 ``torch.cuda.synchronize``), then traces as many with ``torch.profiler``
-and sums the device time of every kernel.  It prints, per backend: wall
+(``measure.kernel_times``: two traces, each after a warm-up step, a
+kernel's launches from the fullest and its time the mean of its kept
+records, as the card's tracer can drop some) and sums the device time of
+every kernel.  It prints, per backend: wall
 ms per step, device ms per step, the device's busy share (device time /
 wall time), and the device time and launches by group (the card's name
 and power limit head the report): the port's hand-written
@@ -26,10 +29,12 @@ tree's ``src`` as ``PYTHONPATH``.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import subprocess
 import time
+from pathlib import Path
 
 import torch
 
@@ -98,9 +103,17 @@ def _steps(params, cfg, backend: str, seed: int, prefill_tokens: int):
     return step
 
 
-def profile_backend(params, cfg, backend: str, seed: int, prefill_tokens: int = 0) -> dict:
-    from torch.autograd import DeviceType
+def _measure():
+    """``measure.py`` beside this file, loaded by its path: this file may
+    run by its path against another tree's package (module note)."""
+    spec = importlib.util.spec_from_file_location(
+        "_measure", Path(__file__).resolve().with_name("measure.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
+
+def profile_backend(params, cfg, backend: str, seed: int, prefill_tokens: int = 0) -> dict:
     step = _steps(params, cfg, backend, seed, prefill_tokens)
     for _ in range(WARMUP):
         step()
@@ -112,38 +125,28 @@ def profile_backend(params, cfg, backend: str, seed: int, prefill_tokens: int = 
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(STEPS):
-            step()
-        torch.cuda.synchronize()
-        traced_wall = time.perf_counter() - t0
-    by_kernel: dict = {}
-    launches: dict = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us()
-            launches[ev.name] = launches.get(ev.name, 0) + 1
-    device_ms = sum(by_kernel.values()) / 1e3 / STEPS
+    # name -> (launches a step, mean device ms a launch)
+    times = _measure().kernel_times(step, STEPS)
+    by_kernel = {name: n * ms for name, (n, ms) in times.items()}
+    launches = {name: n for name, (n, _) in times.items()}
+    device_ms = sum(by_kernel.values())
     groups: dict = {}
     group_launches: dict = {}
-    for name, us in by_kernel.items():
+    for name, ms in by_kernel.items():
         g = _group(name)
-        groups[g] = groups.get(g, 0.0) + us / 1e3 / STEPS
-        group_launches[g] = group_launches.get(g, 0) + launches[name] / STEPS
+        groups[g] = groups.get(g, 0.0) + ms
+        group_launches[g] = group_launches.get(g, 0) + launches[name]
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     wall_ms = 1e3 * sum(walls) / len(walls)
     return {
         "backend": backend,
         "wall_ms_per_step": wall_ms,
-        "traced_wall_ms_per_step": 1e3 * traced_wall / STEPS,
-        "device_ms_per_step": device_ms if by_kernel else None,
-        "device_busy_share": device_ms / wall_ms if by_kernel else None,
+        "device_ms_per_step": device_ms,
+        "device_busy_share": device_ms / wall_ms,
         "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
         "launches_per_step_by_group": group_launches,
         # (name, device ms per step, launches per step)
-        "top_kernels": [(n[:120], us / 1e3 / STEPS, launches[n] / STEPS) for n, us in top],
+        "top_kernels": [(n[:120], ms, launches[n]) for n, ms in top],
     }
 
 

@@ -23,8 +23,11 @@ from repro_torch.kernels.sc_matmul import (
     sc_matmul_cuda,
     sc_matmul_fused_cuda,
     sc_matmul_fused_ref,
+    sc_matmul_quantized_cuda,
+    sc_matmul_quantized_ref,
     sc_matmul_words_cuda,
     sc_tables_ref,
+    stream_planes,
 )
 from repro_torch.kernels.vpu_matmul import (
     elementwise_matmul_cuda,
@@ -34,6 +37,7 @@ from repro_torch.kernels.vpu_matmul import (
     int_operand_matmul_fused_ref,
     plain_multiplier,
 )
+from repro_torch.launch.measure import traced
 
 MULS = {
     "approx_mult": (127, 4, lambda a, b: ref.approx_mul(a, b, 4)),
@@ -46,6 +50,18 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+PROFILE_TRIES = 3  # traces of one call, of which the fullest is kept
+
+
+def _device_kernels(fn):
+    """The device kernels of one call of ``fn``, and how many calls that
+    took: the fullest of ``PROFILE_TRIES`` traces of one call, each after
+    a warm-up call (``measure.traced``; the card's tracer can drop kernel
+    records and never adds any)."""
+    best = max((traced(fn, 1) for _ in range(PROFILE_TRIES)), key=len)
+    return [name for name, _ in best], 2 * PROFILE_TRIES
 
 
 def _operands(cuda, mul, M, K, N, dtype, seed):
@@ -195,29 +211,19 @@ def test_k1_launches_by_route(cuda, mul):
     conversion) and two on the CUDA cores, beside the PyTorch reductions of
     its operand-range check.  The decode projection (M = 4) counts on K2's
     counter."""
-    from torch.autograd import DeviceType
-
     bits, perforate = QUANT_MULS[mul]
     tc = mul == "approx_mult"
     _, x, w = _edge_operands(cuda, 64, 2048, 11008, torch.bfloat16, 3)
 
-    def kernels(fn):
-        fn()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        return [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
-
     before = dict(build.LAUNCHES)
-    names = kernels(lambda: int_operand_matmul_fused_cuda(x, w, bits, mul, {}, torch.bfloat16,
-                                                          2 * perforate))
+    names, calls = _device_kernels(
+        lambda: int_operand_matmul_fused_cuda(x, w, bits, mul, {}, torch.bfloat16, 2 * perforate))
     assert build.LAUNCHES[f"elementwise_matmul[{mul},quantized]"] == \
-        before[f"elementwise_matmul[{mul},quantized]"] + 2
+        before[f"elementwise_matmul[{mul},quantized]"] + calls
     assert len(names) == 3 and all("repro_vpu::" in n for n in names), names
     assert any(("mma_contract" if tc else "contract") in n for n in names), names
     xi, wi = x.float().round(), w.float().mul(100).round().clamp(-127, 127)
-    names = kernels(lambda: elementwise_matmul_cuda(xi, wi, mul, 2 * perforate, bits))
+    names, _ = _device_kernels(lambda: elementwise_matmul_cuda(xi, wi, mul, 2 * perforate, bits))
     assert len([n for n in names if "repro_vpu::" in n]) == (3 if tc else 2), names
     before = dict(build.LAUNCHES)
     int_operand_matmul_fused_cuda(x[:4].contiguous(), w, bits, mul, {}, torch.bfloat16,
@@ -330,8 +336,6 @@ def test_k2_three_launches_and_no_memset(cuda, mul):
     (the scale pass, the contraction, the finishing pass) and no memset or
     other kernel, call after call with the same bits; the integer entry
     makes two."""
-    from torch.autograd import DeviceType
-
     bits, perforate = QUANT_MULS[mul]
     _, x, w = _edge_operands(cuda, 4, 2048, 11008, torch.bfloat16, 5)
     first = int_operand_matmul_fused_cuda(x, w, bits, mul, {}, torch.bfloat16, 2 * perforate)
@@ -340,21 +344,15 @@ def test_k2_three_launches_and_no_memset(cuda, mul):
         assert torch.equal(again, first)
     torch.cuda.synchronize()
     before = dict(build.LAUNCHES)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        int_operand_matmul_fused_cuda(x, w, bits, mul, {}, torch.bfloat16, 2 * perforate)
-        torch.cuda.synchronize()
-    names = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    names, calls = _device_kernels(
+        lambda: int_operand_matmul_fused_cuda(x, w, bits, mul, {}, torch.bfloat16, 2 * perforate))
     assert build.LAUNCHES[f"elementwise_matmul_fused[{mul}]"] == \
-        before[f"elementwise_matmul_fused[{mul}]"] + 1
+        before[f"elementwise_matmul_fused[{mul}]"] + calls
     assert len(names) == 3 and all("repro_vpu::" in n for n in names), names
     xi, wi = x.float().round(), w.float().mul(100).round()
     pre = torch.ones((4,), device=cuda)
-    elementwise_matmul_fused_cuda(xi, wi, mul, pre, {}, torch.float32, 2 * perforate)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        elementwise_matmul_fused_cuda(xi, wi, mul, pre, {}, torch.float32, 2 * perforate)
-        torch.cuda.synchronize()
-    names = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    names, _ = _device_kernels(
+        lambda: elementwise_matmul_fused_cuda(xi, wi, mul, pre, {}, torch.float32, 2 * perforate))
     assert len(names) == 2 and all("repro_vpu::" in n for n in names), names
 
 
@@ -464,6 +462,149 @@ def test_k4_bitwise(cuda, M, K, N, bits, dtype):
     torch.testing.assert_close(sc_matmul_words_cuda(xbits, wbits, bits), want, rtol=0, atol=0)
 
 
+def _prefill_operands(cuda, M, K, N, dtype, seed):
+    """The SC prefill projection's raw operands: activations and
+    fan-in-scaled weights, with exact zeros (every seventh weight, x[0, 0])
+    and the weight's extremes +-max|w|."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((K, N), generator=g, device=cuda) * K ** -0.5).to(dtype)
+    w.view(-1)[::7] = 0.0
+    top = w.abs().max()
+    w[0, 0], w[-1, -1] = top, -top
+    x[0, 0] = 0.0
+    return g, x, w
+
+
+def _check_prefill(x, w, gain, bits, ux, uw, one_polarity=True):
+    """The prefill route (twice, the second call on the tables the first
+    built, and on the accumulators the first cleared) and K4's own entry on
+    the emulator's planes of the same operands (both polarities), each
+    bitwise to its plain version."""
+    draws = SCDraws(ux, uw)
+    before = dict(build.LAUNCHES)
+    got = sc_matmul_quantized_cuda(x, w, gain, bits, draws)
+    again = sc_matmul_quantized_cuda(x, w, gain, bits, draws)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["sc_matmul_packed[quantized]"] == \
+        before["sc_matmul_packed[quantized]"] + 2
+    assert build.LAUNCHES["sc_tables"] == before["sc_tables"] + 1
+    want = sc_matmul_quantized_ref(x, w, gain, bits, (ux, uw))
+    assert got.dtype == x.dtype and got.shape == (x.shape[0], w.shape[1])
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(again, want, rtol=0, atol=0)
+    if one_polarity:
+        xp, xn, wp, wn, _ = stream_planes(x, w, gain)
+        xcat = torch.cat([xp, xn], dim=-1).contiguous()
+        for halves in ((wp, wn), (wn, wp)):
+            torch.testing.assert_close(sc_matmul_cuda(xcat, halves, bits, draws),
+                                       ref.sc_matmul_ref(xcat, halves, bits, ux, uw),
+                                       rtol=0, atol=0)
+    return want
+
+
+# M across the 64-row tile and the 4-row one (1, 4, 5, 64, 65), K not a
+# multiple of the 8-row stage (7, 130, 300) and long (2048, 11008), N not
+# a multiple of the 128-column tile (5, 129, 1000)
+PREFILL_SHAPES = [(1, 7, 5), (4, 130, 129), (5, 300, 1000), (64, 130, 5), (65, 2048, 129),
+                  (1, 11008, 1000), (64, 7, 1000), (65, 300, 129)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", PREFILL_SHAPES)
+@pytest.mark.parametrize("bits", [32, 64, 288, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_prefill_route_bitwise(cuda, M, K, N, bits, dtype):
+    """The SC prefill projection (scale pass, both polarities from one
+    lookup a weight, finishing pass) and K4's one-polarity entry against
+    their plain versions: bitwise, with exact zeros and +-max|w| in the
+    weight, at gain 3 (planes clamped at 1) for 64-bit streams (where the
+    OR over many ports saturates both polarities: outputs may all be 0)."""
+    g, x, w = _prefill_operands(cuda, M, K, N, dtype, M + K + N + bits)
+    ux = torch.rand((1, bits), generator=g, device=cuda)
+    uw = torch.rand((2 * K, bits), generator=g, device=cuda)
+    _check_prefill(x, w, 3.0 if bits == 64 else 0.25, bits, ux, uw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,bits", [
+    (64, 2048, 2048, 32), (64, 2048, 256, 32), (64, 2048, 11008, 32), (64, 11008, 2048, 32),
+    (64, 2048, 151936, 32), (512, 2048, 11008, 32), (4, 2048, 11008, 32), (1, 2048, 151936, 32),
+    (64, 2048, 11008, 512), (512, 2048, 2048, 512), (64, 11008, 2048, 288)])
+def test_k4_prefill_route_serving_shapes(cuda, M, K, N, bits):
+    """The prefill route at the qwen2.5-3b sites (M = 64, the largest
+    prompt bucket; 512 tokens; one- and four-token prompts), bf16, with the
+    port's own draws: bitwise, and K4's one-polarity entry beside it
+    (except at the lm_head, where its plain version alone takes a minute)."""
+    from repro_torch.kernels.ops import sc_draws
+
+    _, x, w = _prefill_operands(cuda, M, K, N, torch.bfloat16, K + N + M + bits)
+    ux, uw = sc_draws((9, K, N, M), 2 * K, bits, cuda)
+    want = _check_prefill(x, w, 0.25, bits, ux, uw, one_polarity=N < 151936)
+    assert float(want.float().abs().max()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_prefill_route_ties_and_thresholds_below_zero(cuda, dtype):
+    """Draws on a grid of sixteenths (0 and 1 included) and a few below 0,
+    where a zero plane sets stream bits: the route takes the zero plane's
+    words from the table row, and stays bitwise; values equal to a
+    threshold, NaN-free weights at gain 3, and the tables bit for bit."""
+    M, K, N, bits = 9, 256, 300, 64
+    g, x, w = _prefill_operands(cuda, M, K, N, dtype, 41)
+    uw = torch.round(torch.rand((2 * K, bits), generator=g, device=cuda) * 16) / 16
+    ux = torch.round(torch.rand((1, bits), generator=g, device=cuda) * 16) / 16
+    uw[:5, :3] = torch.tensor([-0.25, -1.0, -0.0625], device=cuda)
+    uw[K + 7, 4] = -0.5
+    ux[0, 6] = -0.125
+    assert torch.equal(SCDraws(ux, uw).tables, sc_tables_ref(ux, uw))
+    for gain in (0.25, 3.0):
+        _check_prefill(x, w, gain, bits, ux, uw)
+
+
+@pytest.mark.gpu
+def test_k4_prefill_route_all_zero_weight_and_three_launches(cuda):
+    """An all-zero weight (its scale the eps floor) gives the plain
+    version's zeros; a call on built tables is three kernels of
+    sc_matmul.cu (scale pass, contraction, finishing pass) and no memset;
+    the tables build once per set of draws."""
+    g, x, w = _prefill_operands(cuda, 64, 2048, 11008, torch.bfloat16, 3)
+    ux = torch.rand((1, 32), generator=g, device=cuda)
+    uw = torch.rand((4096, 32), generator=g, device=cuda)
+    zero = torch.zeros_like(w)
+    got = _check_prefill(x, zero, 0.25, 32, ux, uw, one_polarity=False)
+    assert not bool(got.float().abs().max() > 0)
+    draws = SCDraws(ux, uw)
+    sc_matmul_quantized_cuda(x, w, 0.25, 32, draws)
+    torch.cuda.synchronize()
+    before = dict(build.LAUNCHES)
+    names, calls = _device_kernels(lambda: sc_matmul_quantized_cuda(x, w, 0.25, 32, draws))
+    assert build.LAUNCHES["sc_matmul_packed[quantized]"] == \
+        before["sc_matmul_packed[quantized]"] + calls
+    assert build.LAUNCHES["sc_tables"] == before["sc_tables"]
+    assert build.LAUNCHES["sc_matmul_packed"] == before["sc_matmul_packed"]
+    assert len([n for n in names if "repro_sc::" in n]) == 3, names
+    assert not any("memset" in n.lower() for n in names), names
+
+
+@pytest.mark.gpu
+def test_k4_prefill_route_refuses_what_it_does_not_take(cuda):
+    x = torch.ones((4, 8), device=cuda)
+    w = torch.ones((8, 6), device=cuda)
+    ux, uw = torch.rand((1, 32), device=cuda), torch.rand((16, 32), device=cuda)
+    with pytest.raises(ValueError):  # mixed dtypes
+        sc_matmul_quantized_cuda(x, w.to(torch.bfloat16), 0.25, 32, (ux, uw))
+    with pytest.raises(ValueError):  # x is not [M, K]
+        sc_matmul_quantized_cuda(x[:, :7].contiguous(), w, 0.25, 32, (ux, uw))
+    with pytest.raises(ValueError):  # a transposed (not contiguous) weight
+        sc_matmul_quantized_cuda(x, torch.ones((6, 8), device=cuda).T, 0.25, 32, (ux, uw))
+    with pytest.raises(ValueError):  # draws for other ports
+        sc_matmul_quantized_cuda(x, w, 0.25, 32, (ux, uw[:8]))
+    with pytest.raises(ValueError):  # a CPU operand
+        sc_matmul_quantized_cuda(x, w.cpu(), 0.25, 32, (ux, uw))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("M,K,N", [(4, 2048, 256), (9, 130, 129)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -564,8 +705,6 @@ def test_k5_reused_tables_and_two_launches_a_call(cuda):
     """Tables built once and reused give the bits of tables built fresh,
     call after call (the accumulators come back clear), and a call with
     the tables launches two kernels of sc_matmul.cu and no memset."""
-    from torch.autograd import DeviceType
-
     g, x, w, ux, uw, pre = _sc_serving_operands(cuda, 4, 2048, 11008, 12)
     draws = SCDraws(ux, uw)
     fresh = sc_matmul_fused_cuda(x, w, 32, (ux, uw), pre, {}, torch.bfloat16)
@@ -574,11 +713,9 @@ def test_k5_reused_tables_and_two_launches_a_call(cuda):
         assert torch.equal(again, fresh)
     torch.cuda.synchronize()
     before = dict(build.LAUNCHES)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        sc_matmul_fused_cuda(x, w, 32, draws, pre, {}, torch.bfloat16)
-        torch.cuda.synchronize()
-    names = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
-    assert build.LAUNCHES["sc_matmul_packed_fused"] == before["sc_matmul_packed_fused"] + 1
+    names, calls = _device_kernels(
+        lambda: sc_matmul_fused_cuda(x, w, 32, draws, pre, {}, torch.bfloat16))
+    assert build.LAUNCHES["sc_matmul_packed_fused"] == before["sc_matmul_packed_fused"] + calls
     assert build.LAUNCHES["sc_tables"] == before["sc_tables"]
     assert len([n for n in names if "repro_sc::" in n]) == 2, names
     assert not any("memset" in n.lower() for n in names), names

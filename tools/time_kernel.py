@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time an emulation kernel at every serving shape of qwen2.5-3b on the
 card, K5 (``sc_matmul_packed_fused``), K7 (``analog_matmul_fused``), K4
-(``sc_matmul_packed``, prefill), K6 (``analog_matmul``, prefill), K2
+(``sc_matmul_packed``, the SC prefill), K6 (``analog_matmul``, prefill), K2
 (``elementwise_matmul_fused``), K1 (``elementwise_matmul``, prefill) or
 the SC draws (``prng``), both multipliers for K1 and K2, for the
 ``repro_torch`` package under ``--src``, so that two trees can be timed in
@@ -12,22 +12,32 @@ turns in one run on one card:
 
 Needs a CUDA device.  Operands are the emulator's own (its value-domain
 code on random bf16 activations and fan-in-scaled weights, seed 1), M = 4
-(the engine's decode slots; K4: 64, the largest prompt bucket of
-``chip_smoke.py``; K1 and K6: ``--m``, default 64), empty epilogue, bf16 out; the SC draws are the port's
-own, ``--bits`` long (K4 and K5).  K6 is one polarity's call, as
+(the engine's decode slots; K1, K4 and K6: ``--m``, default 64, the
+largest prompt bucket of ``chip_smoke.py``), empty epilogue, bf16 out;
+the SC draws are the port's own, ``--bits`` long (K4 and K5).  K6 is one polarity's call, as
 ``split_unipolar_contract`` makes it twice per prefill projection; its
 row adds the float64 tensor-core bound (a multiply-add per row, port and
 column at 67 TFLOP/s).  ``prng`` times ``ops.sc_draws`` for a decode
 site's key path and 2K ports (``device_ms`` counts every kernel of the
 call: in a tree that draws with ``torch.rand``, those).  K5 takes the threshold tables of its draws built beforehand, as on
 the decode path, where a tree has them (``SCDraws``); a tree without
-them builds its tables inside every call, as K4 does in every tree here
-(a prefill projection shares one build between its two K4 calls).  Times: CUDA events
+them builds its tables inside every call, as K4 does in every tree here.
+K4 is timed on two routes: ``entry``, its one-polarity entry on the
+emulator's planes, and ``quantized``, the SC prefill projection through
+the backend's emulator on bf16 activations and fan-in-scaled weights,
+draws whose tables each call builds (a tree that makes the planes in
+plain torch and calls K4 once per polarity is timed with all of that:
+``device_ms`` counts every kernel of the call); its row adds the ALU
+bound (``alu_bound_ms``: a LOP3 per row, port, column, stream word and
+polarity) and the same AND+POPC work at the binary tensor cores' rate
+that ``tools/bench_b1_mma.py`` measured (``b1_bound_ms``).  Times: CUDA events
 over ``--iters`` calls of the wrapper after one warm-up, no L2 flush
 (``ms``: the host time of a call bounds it at small shapes), and the
-device time of the kernel's source file per call from a ``torch.profiler``
-trace of as many calls (``device_ms``; a trace with fewer of its kernels
-than calls is taken again, and a third short one fails the run).  For K5
+device time of the kernel's source file per call from ``torch.profiler``
+traces of as many calls, each after a warm-up call (``device_ms``:
+``repro_torch.launch.measure``, which counts a kernel's launches by the
+fullest trace and times it by the mean of its kept records, as the card's
+tracer can drop some).  For K5
 with tables, ``tables_device_ms`` is one table build.  K2 is timed as the
 fused decode path calls it, through the backend's fused emulator on bf16
 activations and fan-in-scaled weights (seed 1): in a tree that quantises
@@ -47,26 +57,31 @@ Mitchell's as 3 instructions a product and 2 a weight at the dispatch
 rate).  Prints the card's name and power limit, then one JSON line per shape with the bytes bound
 (each plane, x and the output once, at 3.35 TB/s), the device time's
 share of it and, for K5, the word-build floor: ``K5_INSTR_PER_PAIR``
-instructions per weight pair at 128 lanes x 132 SMs x 1.98 GHz.
+instructions per weight pair at the dispatch rate (``INSTR_S``).
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
 from pathlib import Path
 
 import torch
-from torch.autograd import DeviceType
 
-HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
-LANE_INSTR_S = 132 * 128 * 1.98e9  # H100 SXM: SMs x lanes x boost clock
+# the card's rates and the profiler's device time (src/repro_torch/launch/
+# measure.py), loaded by path from this tree whatever --src names
+_spec = importlib.util.spec_from_file_location(
+    "_measure", Path(__file__).resolve().parents[1] / "src/repro_torch/launch/measure.py")
+measure = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(measure)
+HBM_BYTES_S, INSTR_S, ALU_S = measure.HBM_BYTES_S, measure.INSTR_S, measure.ALU_S
+F64_TENSOR_OPS_S, INT8_TENSOR_OPS_S = measure.F64_TENSOR_OPS_S, measure.INT8_TENSOR_OPS_S
+B1_BIT_OPS_S, device_ms = measure.B1_BIT_OPS_S, measure.device_ms
+
 K5_INSTR_PER_PAIR = 63  # K5's word build and OR-accumulation per weight pair (sc_matmul.cu)
 DECODE_M, PREFILL_M = 4, 64
-F64_TENSOR_OPS_S = 67e12  # H100 SXM float64 tensor-core rate (data sheet)
-INT8_TENSOR_OPS_S = 1979e12  # H100 SXM dense int8 tensor-core rate (data sheet)
-INSTR_S = 132 * 128 * 1.98e9  # H100 SXM: SMs x instructions dispatched a clock x boost clock
 # Mitchell's product in K1's CUDA-core contraction: an integer add, a LOP3
 # and an FADD (SASS of csrc/vpu_matmul.cu's contract<1, ...>), none of
 # whose pipes is busier than dispatch; and each weight's preparation, shared
@@ -76,22 +91,6 @@ INSTR_PER_WEIGHT = 2
 BITS = [32]  # SC stream length (--bits)
 # (K, N) of every dense() site of qwen2.5-3b: q/o, k/v, gate/up, down, lm_head
 SHAPES = [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048), (2048, 151936)]
-TRACE_TRIES = 3
-
-
-def device_ms(fn, iters: int, key: str) -> float:
-    """Device ms per call of the kernels named ``key``: see the module note."""
-    seen = []
-    for _ in range(TRACE_TRIES):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA and key in ev.name]
-        if len(evs) >= iters:
-            return sum(ev.time_range.elapsed_us() for ev in evs) / 1e3 / iters
-        seen.append(len(evs))
-    raise RuntimeError(f"traces of {iters} calls held {seen} kernels named {key!r}")
 
 
 def sc_operands(M, K, N, g, dev):
@@ -108,11 +107,28 @@ def sc_operands(M, K, N, g, dev):
     return p, xcat, wp, wn, pre, ux, uw
 
 
-def k4_call(K, N, g, dev):
-    """The K4 call at one shape, its tables built in the call."""
+def k4_call(K, N, g, dev, route, M):
+    """K4 at one shape: its one-polarity entry on the emulator's planes
+    (route "entry"; tables built in the call), or the SC prefill
+    projection through the backend's emulator on bf16 activations and
+    fan-in-scaled weights (route "quantized": draws whose tables are built
+    in the call, as each prefill projection builds its own; in a tree that
+    makes the planes in plain torch and calls K4 twice, all of that).  Any
+    tree."""
     from repro_torch.kernels import sc_matmul as sc
 
-    p, xcat, wp, wn, _, ux, uw = sc_operands(PREFILL_M, K, N, g, dev)
+    if route == "quantized":
+        from repro_torch.configs.base import SCParams
+        from repro_torch.core import backends
+        from repro_torch.kernels import ops
+
+        p = SCParams(bits=BITS[0])
+        w = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).to(torch.bfloat16)
+        x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+        ux, uw = ops.sc_draws((1, K, N, M), 2 * K, p.bits, dev)
+        rng = lambda n_ports, n_bits, device: sc.SCDraws(ux, uw)
+        return lambda: backends._emulate_sc(x, w, p, rng), None
+    p, xcat, wp, wn, _, ux, uw = sc_operands(M, K, N, g, dev)
     if not hasattr(sc, "SCDraws"):
         return lambda: sc.sc_matmul_cuda(xcat, (wp, wn), p.bits, ux, uw), None
     return lambda: sc.sc_matmul_cuda(xcat, (wp, wn), p.bits, (ux, uw)), None
@@ -230,18 +246,14 @@ def k1_ops_bound_ms(mul, M, K, N) -> float:
 
 def trace_split(fn, iters: int):
     """Kernels per call, and device ms per call by kernel (the first of
-    BY_KERNEL in its name, else the start of its name), from a profiler
-    trace of ``iters`` calls."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
-    split = {}
-    for ev in evs:
-        name = next((k for k in BY_KERNEL if k in ev.name), ev.name[:40])
-        split[name] = split.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3 / iters
-    return len(evs) / iters, split
+    BY_KERNEL in its name, else the start of its name), from profiler
+    traces of ``iters`` calls (``measure.kernel_times``)."""
+    launches, split = 0, {}
+    for name, (n, ms) in measure.kernel_times(fn, iters).items():
+        group = next((k for k in BY_KERNEL if k in name), name[:40])
+        launches += n
+        split[group] = split.get(group, 0.0) + n * ms
+    return launches, split
 
 
 def main() -> int:
@@ -272,12 +284,17 @@ def main() -> int:
     if args.kernel == "k1":
         variants = [(mul, route) for mul in ("approx_mult", "log_mult")
                     for route in ("int", "quantized")]
+    if args.kernel == "k4":
+        variants = [("entry",), ("quantized",)]
     for (K, N), extra in ((shape, v) for shape in SHAPES for v in variants):
         if args.kernel == "k2":
             run, tables = make(K, N, g, dev, *extra), None
         elif args.kernel == "k1":
             run, tables = make(K, N, g, dev, *extra, args.m), None
             key = "repro_vpu::" if extra[1] == "int" else ""
+        elif args.kernel == "k4":
+            run, tables = make(K, N, g, dev, *extra, args.m)
+            key = "repro_sc::" if extra[0] == "entry" else ""
         elif args.kernel == "k6":
             run, tables = make(K, N, g, dev, args.m)
         else:
@@ -292,7 +309,7 @@ def main() -> int:
         torch.cuda.synchronize()
         ms = start.elapsed_time(end) / args.iters
         dev_ms = device_ms(run, args.iters, key)
-        M = {"k4": PREFILL_M, "k6": args.m, "k1": args.m}.get(args.kernel, DECODE_M)
+        M = {"k4": args.m, "k6": args.m, "k1": args.m}.get(args.kernel, DECODE_M)
         if args.kernel == "k2":  # x, w and the output, bf16
             bound_ms = (2 * M * K + 2 * K * N + 2 * M * N) / HBM_BYTES_S * 1e3
         elif args.kernel == "k1":  # x, w (bf16) and the output (int: float32)
@@ -300,6 +317,8 @@ def main() -> int:
                 / HBM_BYTES_S * 1e3
         elif args.kernel == "k6":  # x [M, 2K] and two halves (bf16), the float32 output
             bound_ms = (2 * M * 2 * K + 2 * 2 * K * N + 4 * M * N) / HBM_BYTES_S * 1e3
+        elif args.kernel == "k4" and extra[0] == "quantized":  # x, w and the output, bf16
+            bound_ms = (2 * M * K + 2 * K * N + 2 * M * N) / HBM_BYTES_S * 1e3
         elif args.kernel == "prng":  # ux and uw written once, float32
             bound_ms = 4 * (2 * K + 1) * args.bits / HBM_BYTES_S * 1e3
         else:  # x [M, 2K] and two weight halves
@@ -307,7 +326,7 @@ def main() -> int:
         row = {"label": args.label, "kernel": args.kernel, "shape": [M, K, N], "ms": ms,
                "device_ms": dev_ms, "bound_ms": bound_ms, "share": bound_ms / dev_ms,
                "card": card}
-        if two_muls or args.kernel in ("k6", "prng"):
+        if two_muls or args.kernel in ("k4", "k6", "prng"):
             if two_muls:
                 row["mul"] = extra[0]
             row["launches"], row["by_kernel"] = trace_split(run, args.iters)
@@ -318,8 +337,17 @@ def main() -> int:
             row["f64_ops_bound_ms"] = 2.0 * M * 2 * K * N / F64_TENSOR_OPS_S * 1e3
         if args.kernel in ("k4", "k5", "prng"):
             row["bits"] = args.bits
+        if args.kernel == "k4":
+            # a LOP3 per row, port, column, stream word and polarity on the
+            # ALU pipe (as chip_smoke.py counts it), and the same AND+POPC
+            # work at the binary tensor cores' rate (tools/bench_b1_mma.py)
+            pol = 2 if extra[0] == "quantized" else 1
+            bit_ops = pol * M * 2 * K * N * args.bits
+            row["route"] = extra[0]
+            row["alu_bound_ms"] = bit_ops / 32 / ALU_S * 1e3
+            row["b1_bound_ms"] = bit_ops / B1_BIT_OPS_S * 1e3
         if args.kernel == "k5":
-            row["instr_floor_ms"] = K * N * K5_INSTR_PER_PAIR / LANE_INSTR_S * 1e3
+            row["instr_floor_ms"] = K * N * K5_INSTR_PER_PAIR / INSTR_S * 1e3
             if tables is not None:
                 tables()
                 row["tables_device_ms"] = device_ms(tables, args.iters, key)
