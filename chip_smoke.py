@@ -12,10 +12,11 @@ checkout of the repository.  Phases, each synchronised before the next:
    shapes the serving path gives it (qwen2.5-3b full width): K1 and K2 for
    both multipliers, K4 and K5 (SC), K6 and K7 (analog) must be bitwise
    equal (the fused ones also with random epilogue operands); K3 within
-   1e-4, also at G * dh = 6144 (granite-20b's attention group).  K1 (the
-   prefill projection, 64 rows) and K2 (decode) run as the serving path
-   calls them, on bf16 activations and weights that they quantise
-   themselves, and on their integer-operand entries (K1's truncated
+   1e-4, also at G * dh = 6144 (granite-20b's attention group) and at a
+   4096-key context.  K1 (the prefill projection, 64 rows) and K2
+   (decode) run as the serving path calls them, on bf16 activations and
+   weights that they quantise themselves, and on their integer-operand
+   entries (K1's truncated
    product on the int8 tensor cores).  So does the SC prefill projection
    (K4's function for both polarities, the planes formed in its loads),
    held at 32 and 512-bit streams at every site.  K4's one-polarity entry,
@@ -31,7 +32,7 @@ checkout of the repository.  Phases, each synchronised before the next:
    host time of a call bounds at small shapes) and by a ``torch.profiler``
    trace of its own kernels (``device_ms``), beside its plain version, its
    roofline bound and, for K3, a masked ``scaled_dot_product_attention``
-   call (timed here only; the port never calls it).
+   call (its device time, timed here only; the port never calls it).
 3. Serve a seeded queue through the engine on the qwen2.5-3b smoke config
    on the card and on the CPU, backends exact, log_mult, approx_mult, sc
    and analog, each device with its own ``init(0)`` (held equal, tensor
@@ -103,6 +104,7 @@ SC_LONG_BITS = 512       # the stream length of the K4/K5 rows beyond the old 25
 PREFILL_M = 64           # largest prompt bucket of the engine phase
 DECODE_M = 4             # slots of the engine phase
 MAX_SEQ = 96             # engine phase: prompts <= 64 + <= 32 new tokens
+K3_LONG_S = 4096         # K3's serving-context row: qwen2.5-3b at a 4k context
 
 # kernel (launch-count name) -> (CUDA source, the TPU kernel's pl.pallas_call)
 KERNEL_SOURCES = {
@@ -264,39 +266,45 @@ def phase_kernels(dev, cfg):
             torch.cuda.empty_cache()
 
     # K3 at the decode shape: B slots, S = serving window, per-row
-    # positions; and at granite-20b's group (48 query heads of one KV
-    # head, G * dh = 6144: split across blocks of 2048 outputs)
+    # positions; at granite-20b's group (48 query heads of one KV head, 6 G
+    # tiles); and at a 4k context (the keys split across the card's SMs)
     B = DECODE_M
-    for KV, G, dh in ((cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head), (1, 48, 128)):
+    serving = (cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head)
+    for S, (KV, G, dh), lo in ((MAX_SEQ, serving, 16), (MAX_SEQ, (1, 48, 128), 16),
+                               (K3_LONG_S, serving, K3_LONG_S - 196)):
         q = torch.randn((B, KV, G, dh), generator=g, device=dev).to(bf)
-        ck = torch.randn((B, MAX_SEQ, KV, dh), generator=g, device=dev).to(bf)
-        cv = torch.randn((B, MAX_SEQ, KV, dh), generator=g, device=dev).to(bf)
-        pos = torch.randint(16, MAX_SEQ, (B,), generator=g, device=dev).to(torch.int32)
+        ck = torch.randn((B, S, KV, dh), generator=g, device=dev).to(bf)
+        cv = torch.randn((B, S, KV, dh), generator=g, device=dev).to(bf)
+        pos = torch.randint(lo, S, (B,), generator=g, device=dev).to(torch.int32)
         got, want = flash_decode(q, ck, cv, pos), flash_decode_ref(q, ck, cv, pos)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         if not err <= 1e-4:
-            raise AssertionError(f"flash_decode G*dh={G * dh}: max |diff| {err} > 1e-4 "
+            raise AssertionError(f"flash_decode S={S} G*dh={G * dh}: max |diff| {err} > 1e-4 "
                                  f"against its plain version")
         # library yardstick: masked SDPA over the same inputs, heads expanded
         qh = q.reshape(B, KV * G, 1, dh)
         kh = ck.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
         vh = cv.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
-        mask = (torch.arange(MAX_SEQ, device=dev)[None, :] <= pos[:, None])[:, None, None, :]
+        mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None])[:, None, None, :]
         lib = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
         lib_err = (lib().float().reshape(B, KV, G, dh) - want).abs().max().item()
         keys = int((pos.long() + 1).sum())
         nbytes = 2 * q.numel() + 2 * 2 * keys * KV * dh + 4 * B + 4 * got.numel()
         b_ms, b_by = bound(nbytes, 4.0 * keys * KV * G * dh)
         run = lambda: flash_decode(q, ck, cv, pos)
-        row = {"name": "flash_decode", "shape": [B, MAX_SEQ, KV, G, dh], "max_abs_err": err,
+        # library_ms: SDPA's device time (every kernel of the call), as the
+        # kernel's; its CUDA-event time, which the host bounds, beside it
+        row = {"name": "flash_decode", "shape": [B, S, KV, G, dh], "max_abs_err": err,
                "ms": cuda_ms(run, 50), "device_ms": device_ms(run, 50, "flash_decode"),
                "plain_ms": cuda_ms(lambda: flash_decode_ref(q, ck, cv, pos), 50),
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(lib, 50),
-               "library_max_abs_err": lib_err}
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": device_ms(lib, 50, ""),
+               "library_events_ms": cuda_ms(lib, 50), "library_max_abs_err": lib_err}
         if "flash_decode" not in summary:  # the serving shape
             summary["flash_decode"] = row
         print(f"[kernels] {json.dumps(row)}", flush=True)
+        del q, ck, cv, kh, vh, got, want
+    torch.cuda.empty_cache()
     return summary
 
 

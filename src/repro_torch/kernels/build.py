@@ -57,8 +57,12 @@ SIGNATURES = {
         ),
     },
     "flash_decode": {
-        # in_bf16, q, ck, cv, pos, out, B, S, KV, G, dh, scale, stream
-        "flash_decode": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+        # in_bf16, q, ck, cv, pos, out, part, count, B, S, KV, G, dh, gt,
+        # maxg, lpr, nv, steps, split_len, n_splits, scale, stream
+        "flash_decode": (
+            _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+            _I, _I, _F, _P,
+        ),
     },
     "sc_matmul": {
         # ux, uw, tab, K, bits, stream

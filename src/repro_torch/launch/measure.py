@@ -37,7 +37,10 @@ ALU_S = 132 * 64 * 1.98e9
 # the SC contractions' OR of ANDs
 B1_BIT_OPS_S = 5118e12
 
-TRACES, TRACE_TRIES = 2, 4  # traces pooled by kernel_times; most taken while all are empty
+# traces pooled by kernel_times; most taken while all are empty (on the
+# H100 four empty traces of one call in a row have been seen in a
+# chip_smoke.py run, so a run tries harder before it calls a kernel absent)
+TRACES, TRACE_TRIES = 2, 12
 
 
 def traced(fn, calls: int, key: str = "") -> list:

@@ -391,6 +391,63 @@ def test_k3_large_groups(cuda, KV, G, dh, dtype):
     torch.testing.assert_close(got, flash_decode_ref(q, ck, cv, pos), rtol=0, atol=1e-4)
 
 
+# K3 at serving contexts, bf16: (B, S, KV, G, pos range), many splits a row
+K3_LONG = {
+    "qwen-4k": (4, 4096, 2, 8, (3900, 4096)),
+    "batch-32": (32, 2048, 2, 8, (1800, 2048)),
+    "granite-group": (4, 96, 1, 48, (16, 96)),
+}
+
+
+def _k3_operands(cuda, name, dh=128):
+    B, S, KV, G, (lo, hi) = K3_LONG[name]
+    g = torch.Generator(device=cuda).manual_seed(S + B)
+    q = torch.randn((B, KV, G, dh), generator=g, device=cuda).to(torch.bfloat16)
+    ck = torch.randn((B, S, KV, dh), generator=g, device=cuda).to(torch.bfloat16)
+    cv = torch.randn((B, S, KV, dh), generator=g, device=cuda).to(torch.bfloat16)
+    pos = torch.randint(lo, hi, (B,), generator=g, device=cuda).to(torch.int32)
+    return q, ck, cv, pos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(K3_LONG))
+def test_k3_serving_contexts(cuda, name):
+    """K3 with its keys split across many blocks (qwen2.5-3b at a 4k
+    context, a batch of 32 at 2k, granite-20b's 48-head group): within
+    1e-4 of its plain version, as at the smoke window."""
+    q, ck, cv, pos = _k3_operands(cuda, name)
+    got = flash_decode(q, ck, cv, pos)
+    torch.testing.assert_close(got, flash_decode_ref(q, ck, cv, pos), rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["qwen-4k", "granite-group"])
+def test_k3_repeatable_bitwise(cuda, name):
+    """The splits combine in split order, so two calls on the same inputs
+    give the same output bit for bit."""
+    q, ck, cv, pos = _k3_operands(cuda, name)
+    first = flash_decode(q, ck, cv, pos)
+    for _ in range(3):
+        assert torch.equal(flash_decode(q, ck, cv, pos), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["qwen-4k", "granite-group"])
+def test_k3_one_launch_a_call(cuda, name):
+    """A call is one launch of one kernel, splits and combine together:
+    one count on the wrapper's counter and one kernel in a trace."""
+    q, ck, cv, pos = _k3_operands(cuda, name)
+    flash_decode(q, ck, cv, pos)
+    torch.cuda.synchronize()
+    before = build.LAUNCHES["flash_decode"]
+    flash_decode(q, ck, cv, pos)
+    assert build.LAUNCHES["flash_decode"] == before + 1
+    before = build.LAUNCHES["flash_decode"]
+    names, calls = _device_kernels(lambda: flash_decode(q, ck, cv, pos))
+    assert build.LAUNCHES["flash_decode"] == before + calls
+    assert len(names) == 1 and "flash_decode" in names[0], names
+
+
 def _epilogue(case, g, cuda, N, dtype):
     gain = (1 + 0.05 * torch.randn(N, generator=g, device=cuda)).to(dtype)
     add = (0.02 * torch.randn(N, generator=g, device=cuda)).to(dtype)

@@ -3,7 +3,8 @@
 card, K5 (``sc_matmul_packed_fused``), K7 (``analog_matmul_fused``), K4
 (``sc_matmul_packed``, the SC prefill), K6 (``analog_matmul``, prefill), K2
 (``elementwise_matmul_fused``), K1 (``elementwise_matmul``, prefill) or
-the SC draws (``prng``), both multipliers for K1 and K2, for the
+the SC draws (``prng``), both multipliers for K1 and K2, or K3
+(``flash_decode``, ``--kernel k3``: at ``K3_SHAPES``), for the
 ``repro_torch`` package under ``--src``, so that two trees can be timed in
 turns in one run on one card:
 
@@ -57,7 +58,13 @@ Mitchell's as 3 instructions a product and 2 a weight at the dispatch
 rate).  Prints the card's name and power limit, then one JSON line per shape with the bytes bound
 (each plane, x and the output once, at 3.35 TB/s), the device time's
 share of it and, for K5, the word-build floor: ``K5_INSTR_PER_PAIR``
-instructions per weight pair at the dispatch rate (``INSTR_S``).
+instructions per weight pair at the dispatch rate (``INSTR_S``).  K3's
+rows (bf16; pos drawn from each shape's range) give its bound as the larger
+of its bytes (q, the keys and values up to pos, the float32 output) and its
+float32 multiply-adds at 67 TFLOP/s, its launches and device time by
+kernel, and masked ``scaled_dot_product_attention``'s device time
+(``library_device_ms``, every kernel of the call) and CUDA-event time on
+the same inputs.
 """
 from __future__ import annotations
 
@@ -226,12 +233,50 @@ def k1_call(K, N, g, dev, mul, route, M):
     return lambda: elementwise_matmul_cuda(x, w, mul, drop)
 
 
+# K3's shapes: (B, S, KV, G, dh, pos drawn from [lo, hi)), bf16
+K3_SHAPES = {
+    "serving": (4, 96, 2, 8, 128, (16, 96)),  # chip_smoke.py's engine window
+    "qwen-4k": (4, 4096, 2, 8, 128, (3900, 4096)),
+    "batch-32": (32, 2048, 2, 8, 128, (1800, 2048)),
+    "granite-group": (4, 96, 1, 48, 128, (16, 96)),
+}
+
+
+def k3_call(name, g, dev):
+    """K3 at one of K3_SHAPES (any tree), and the library yardstick: one
+    masked ``scaled_dot_product_attention`` call on the same inputs, heads
+    expanded beforehand (timed only; the port never calls it).  Returns
+    the two calls and K3's bytes (q, the keys and values up to pos, pos,
+    the float32 output) and float32 operations (a multiply-add for each
+    logit and each P.V term)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    B, S, KV, G, dh, (lo, hi) = K3_SHAPES[name]
+    bf = torch.bfloat16
+    q = torch.randn((B, KV, G, dh), generator=g, device=dev).to(bf)
+    ck = torch.randn((B, S, KV, dh), generator=g, device=dev).to(bf)
+    cv = torch.randn((B, S, KV, dh), generator=g, device=dev).to(bf)
+    pos = torch.randint(lo, hi, (B,), generator=g, device=dev).to(torch.int32)
+    qh = q.reshape(B, KV * G, 1, dh)
+    kh = ck.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+    vh = cv.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+    mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None])[:, None, None, :]
+    keys = int((pos.clamp(max=S - 1).long() + 1).sum())
+    nbytes = 2 * q.numel() + 2 * 2 * keys * KV * dh + 4 * B + 4 * q.numel()
+    return (lambda: flash_decode(q, ck, cv, pos),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
+            nbytes, 4.0 * keys * KV * G * dh)
+
+
 # kernel -> (call maker, name key of its kernels in a trace; "" counts every kernel)
 KERNELS = {"k4": (k4_call, "repro_sc::"), "k5": (k5_call, "repro_sc::"),
            "k6": (k6_call, "repro_analog::"), "k7": (k7_call, "repro_analog::"),
-           "k2": (k2_call, ""), "k1": (k1_call, "repro_vpu::"), "prng": (prng_call, "")}
+           "k2": (k2_call, ""), "k1": (k1_call, "repro_vpu::"), "prng": (prng_call, ""),
+           "k3": (k3_call, "flash_decode")}
 BY_KERNEL = ("scale_pass", "decode_contract", "mma_contract", "expand_slots", "contract",
-             "sum_levels", "finish", "to_float")
+             "sum_levels", "finish", "to_float", "flash_decode_split", "flash_decode_kernel")
 
 
 def k1_ops_bound_ms(mul, M, K, N) -> float:
@@ -254,6 +299,40 @@ def trace_split(fn, iters: int):
         launches += n
         split[group] = split.get(group, 0.0) + n * ms
     return launches, split
+
+
+def events_ms(fn, iters: int) -> float:
+    """Mean ms a call by CUDA events over ``iters`` calls after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_k3(args, card: str, g, dev) -> None:
+    """One row per K3_SHAPES entry: K3's time beside its bound and SDPA's."""
+    for name in K3_SHAPES:
+        run, lib, nbytes, n_ops = k3_call(name, g, dev)
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
+        t_ops = n_ops / measure.CUDA_CORE_OPS_S * 1e3
+        dev_ms = device_ms(run, args.iters, "flash_decode")
+        launches, split = trace_split(run, args.iters)
+        row = {"label": args.label, "kernel": "k3", "shape": name,
+               "B_S_KV_G_dh": list(K3_SHAPES[name][:5]), "ms": events_ms(run, args.iters),
+               "device_ms": dev_ms, "launches": launches, "by_kernel": split,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "share": max(t_bytes, t_ops) / dev_ms,
+               "library_device_ms": device_ms(lib, args.iters, ""),
+               "library_ms": events_ms(lib, args.iters), "card": card}
+        print(json.dumps(row), flush=True)
+        del run, lib
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -279,6 +358,9 @@ def main() -> int:
     print(card, flush=True)
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(1)
+    if args.kernel == "k3":
+        time_k3(args, card, g, dev)
+        return 0
     two_muls = args.kernel in ("k1", "k2")
     variants = [("approx_mult",), ("log_mult",)] if two_muls else [()]
     if args.kernel == "k1":
@@ -299,15 +381,7 @@ def main() -> int:
             run, tables = make(K, N, g, dev, args.m)
         else:
             run, tables = make(K, N, g, dev)
-        run()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(args.iters):
-            run()
-        end.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end) / args.iters
+        ms = events_ms(run, args.iters)
         dev_ms = device_ms(run, args.iters, key)
         M = {"k4": args.m, "k6": args.m, "k1": args.m}.get(args.kernel, DECODE_M)
         if args.kernel == "k2":  # x, w and the output, bf16
