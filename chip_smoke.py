@@ -48,6 +48,24 @@ checkout of the repository.  Phases, each synchronised before the next:
    fused decode) and check every kernel of the path was launched; then
    serve the same queue again on the warm engine for per-lane
    steady-state rates.
+5. Train (the training slice's path, on the engine phase's weights):
+   the quickstart's pipeline at qwen2.5-3b full width, analog (arrays of
+   16, a 4-bit ADC): a calibration step, INJECT steps, MODEL steps and a
+   hardware eval, batch 4 x 64 tokens, each step's loss, wall ms, device
+   ms (a profiler trace) and launches, and the peak memory.  K6 must
+   launch in the calibration, MODEL and eval steps and not in an INJECT
+   step, whose forward is a plain matmul and whose error draws are the
+   normal entry of ``prng.cu`` (held bitwise against its plain version on
+   the card at the INJECT shapes).  Then one MODEL step on each of sc,
+   approx_mult and log_mult at full width with 2 layers (K4, K1 and K1
+   must launch, the grads be finite), and the smoke config's
+   calibrate, INJECT and MODEL steps on analog and SC on the card against
+   the CPU: the INJECT step's loss and weights within the CPU tests'
+   tolerances, the emulated steps' losses within their 1e-3 (but analog's
+   calibration, where an ADC level at a decision boundary may flip end to
+   end, ROADMAP section C: printed), every emulated projection of the
+   calibration and MODEL steps bitwise the plain version's on the same
+   operands.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -55,7 +73,10 @@ and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -129,10 +150,20 @@ KERNEL_SOURCES = {
     # Pallas kernel)
     "sc_draws": ("prng.cu", "ops.py:97"),
 }
+# the Gaussian noise of INJECT mode: the reference's jax.random.normal in
+# calibration.sample_error (not a Pallas kernel); on the training path only
+TRAIN_KERNELS = {"normal_draws": ("prng.cu", "../core/calibration.py:118")}
 # the kernels the serving path launches (the integer-operand entries of K1
 # and K2, K4's one-polarity entry on given planes and its packed-words
 # entry are checks off the path)
 PATH_KERNELS = tuple(KERNEL_SOURCES)
+TRAIN_B, TRAIN_T = 4, 64  # a training batch at full width: rows x tokens
+# the CPU tests' tolerances (tests/test_torch_train_step.py and
+# test_torch_train_pipeline.py, which import jax and so do not run here):
+# a train step's loss and weights, the share of a tensor's weights that
+# AdamW's sign-like first steps may move apart when their gradient is at
+# the rounding level, and the loss of an emulated (SC, analog MODEL) step
+STEP_RTOL, STEP_ATOL, ADAM_FLIP, LOSS_RTOL = 1e-4, 1e-5, 1e-3, 1e-3
 EMULATED = ("log_mult", "approx_mult", "sc", "analog")
 
 
@@ -586,20 +617,21 @@ BACKENDS = ("exact", "log_mult", "approx_mult", "sc", "analog")
 
 def _record_projections(names):
     """Wrap the registry specs of ``names`` so every emulated projection is
-    kept as (name, fused, x, w, params, rng, epi, y); returns the list and
-    a function that restores the specs."""
+    kept as (name, fused, x, w, params, rng, epi, y), the operands copied
+    (a train step updates its weights in place); returns the list and a
+    function that restores the specs."""
     from repro_torch.core import registry
 
     seen, specs = [], {n: registry.get(n) for n in names}
     for name, spec in specs.items():
         def emulate(x, w, p, rng, _n=name, _s=spec):
             y = _s.emulate(x, w, p, rng)
-            seen.append((_n, False, x, w, p, rng, None, y))
+            seen.append((_n, False, x.detach().clone(), w.detach().clone(), p, rng, None, y))
             return y
 
         def fused_emulate(x, w, p, rng, epi, _n=name, _s=spec):
             y = _s.fused_emulate(x, w, p, rng, epi)
-            seen.append((_n, True, x, w, p, rng, epi, y))
+            seen.append((_n, True, x.detach().clone(), w.detach().clone(), p, rng, epi, y))
             return y
 
         registry.register(dataclasses.replace(spec, emulate=emulate, fused_emulate=fused_emulate),
@@ -729,7 +761,276 @@ def phase_engine(dev, cfg, card: str):
     torch.cuda.synchronize()
     metrics = dict(eng.metrics(), wall_s=time.perf_counter() - t0, card=card)
     print(f"[engine] steady-state metrics {json.dumps(metrics)}", flush=True)
-    return launches
+    return launches, params
+
+
+def _timed(fn):
+    """(fn(), wall ms, the launches of the port's kernels) of one call."""
+    from repro_torch.kernels import build
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return out, wall, {k: v for k, v in build.LAUNCHES.items() if v}
+
+
+def _kernel_group(name: str) -> str:
+    port = re.search(r"repro_[a-z]+::", name)  # the port's kernels, by CUDA namespace
+    if port:
+        return port.group(0)[:-2]
+    low = name.lower()
+    for key, group in (("gemm", "gemm"), ("nvjet", "gemm"), ("xmma", "gemm"),
+                       ("cutlass", "gemm"), ("reduce", "reduction"), ("elementwise", "elementwise"),
+                       ("memcpy", "copy"), ("memset", "copy"), ("copy", "copy")):
+        if key in low:
+            return group
+    return "other"
+
+
+def _traced_ms(fn):
+    """Device ms of one call of ``fn`` (every kernel's own time, from a
+    profiler trace after a warm-up call: fn runs twice), and the ms by
+    kernel group (the port's kernels by CUDA namespace, PyTorch's GEMMs,
+    elementwise and reduction kernels, copies)."""
+    from repro_torch.launch.measure import traced
+
+    groups = {}
+    records = traced(fn, 1)
+    for name, us in records:
+        g = _kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + us / 1e3
+    return sum(us for _, us in records) / 1e3, dict(sorted(groups.items(), key=lambda kv: -kv[1]))
+
+
+def phase_normal(dev):
+    """The normal entry of prng.cu against its plain version on the card,
+    bitwise, at the INJECT path's output shapes (and within 3 float32
+    ulps of the CPU's, whose log1p is another libm's); timed."""
+    from repro_torch.kernels import ops, prng
+    from repro_torch.launch.measure import INT_OPS_S
+
+    rows = TRAIN_B * TRAIN_T
+    summary = None
+    for shape in ((rows, 2048), (rows, 11008), (rows, 151936), (7, 13)):
+        path = (1, 3, 17, 2**31 - 5)
+        got = ops.normal(path, shape, dev)
+        want = prng.normal(prng.key_of_path(path), shape, dev)
+        _hold("normal_draws", shape, got, want)
+        cpu = prng.normal(prng.key_of_path(path), shape).view(torch.int32).long()
+        ulps = int((got.cpu().view(torch.int32).long() - cpu).abs().max())
+        if ulps > 3:
+            raise AssertionError(f"normal_draws {shape}: {ulps} ulps from the CPU's plain version")
+        n = shape[0] * shape[1]
+        b_ms, b_by = bound(4.0 * n, THREEFRY_OPS * n, INT_OPS_S)
+        row = {"name": "normal_draws", "shape": list(shape), "max_abs_err": 0.0,
+               "cpu_max_ulps": ulps, "ms": cuda_ms(lambda: ops.normal(path, shape, dev), 10),
+               "device_ms": device_ms(lambda: ops.normal(path, shape, dev), 10, "repro_prng::"),
+               "plain_ms": cuda_ms(lambda: prng.normal(prng.key_of_path(path), shape, dev), 1),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        print(f"[kernels] {json.dumps(row)}", flush=True)
+        if shape == (rows, 11008):
+            summary = row
+    return {"normal_draws": summary}
+
+
+def _train_approx(be, mode):
+    from repro_torch.configs.base import AnalogParams, ApproxConfig, Backend
+
+    return ApproxConfig(backend=Backend(be), mode=mode,
+                        analog=AnalogParams(array_size=16, adc_bits=4), calibrate_every=10)
+
+
+def phase_train(dev, cfg, params, card: str):
+    """The quickstart's pipeline at full width on the engine phase's
+    weights (see the module docstring, phase 5).  Returns the launches of
+    the pipeline's steps, summed."""
+    from repro_torch.configs.base import TrainConfig, TrainMode
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.training import steps as step_lib
+
+    model = build_model(cfg)
+    approx = _train_approx("analog", TrainMode.INJECT)
+    tcfg = TrainConfig(total_steps=48, warmup_steps=2, learning_rate=2e-3)
+    data = SyntheticLM(cfg.vocab_size, seq_len=TRAIN_T, global_batch=TRAIN_B, seed=0)
+    gc.collect()  # the engine phase's cycles (its KV cache) go before the peak is taken
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev) / 2**30
+    t0 = time.perf_counter()
+    state = step_lib.init_train_state(model, 0, approx, tcfg, device=dev, params=params)
+    torch.cuda.synchronize()
+    print(f"[train] state (AdamW float32 master, m, v; calibration) in "
+          f"{time.perf_counter() - t0:.1f}s: {held:.2f} GiB held before it (the weights), "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB after", flush=True)
+    fns = {"calibrate": step_lib.make_calibration_step(model, approx, tcfg),
+           "inject": step_lib.make_train_step(model, approx, tcfg, TrainMode.INJECT),
+           "model": step_lib.make_train_step(model, approx, tcfg, TrainMode.MODEL)}
+    hw_eval = step_lib.make_eval_step(model, approx)
+    box = {"state": state, "s": 0}
+
+    def call(kind):
+        s = box["s"]
+        batch, key = data.batch_at(s), (1, s)
+        if kind == "eval":
+            return hw_eval(box["state"], data.batch_at(999), (2,))
+        box["state"], m = fns[kind](box["state"], batch, key)
+        if kind != "calibrate":
+            box["s"] += 1
+        return m
+
+    rows, total = [], {}
+    for kind, untraced in (("calibrate", 1), ("inject", 2), ("model", 2), ("eval", 1)):
+        walls = []
+        for _ in range(untraced):
+            m, wall, launches = _timed(lambda: call(kind))
+            walls.append(wall)
+            loss = float(m["loss"])
+            if not np.isfinite(loss):
+                raise AssertionError(f"[train] {kind}: loss {loss}")
+            k6, normal = launches.get("analog_matmul", 0), launches.get("normal_draws", 0)
+            if kind == "inject" and (k6 or not normal):
+                raise AssertionError(f"[train] an INJECT step launched K6 {k6} times and the "
+                                     f"normal entry {normal} times: {launches}")
+            if kind != "inject" and (not k6 or normal):
+                raise AssertionError(f"[train] {kind}: K6 {k6}, normal {normal}: {launches}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+        dev_ms, by_group = _traced_ms(lambda: call(kind))
+        row = {"step": kind, "loss": loss, "wall_ms": walls, "device_ms": dev_ms,
+               "busy": dev_ms / min(walls), "by_group_ms": by_group, "launches": launches,
+               "grad_norm": float(m["grad_norm"]) if "grad_norm" in m else None}
+        rows.append(row)
+        print(f"[train] {json.dumps(row)}", flush=True)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    inject, model_row = rows[1], rows[2]
+    summary = {"arch": cfg.name, "layers": cfg.n_layers, "batch": [TRAIN_B, TRAIN_T],
+               "backend": "analog(array 16, adc 4 bits)", "peak_gib": peak,
+               "model_over_inject_wall": min(model_row["wall_ms"]) / min(inject["wall_ms"]),
+               "model_over_inject_device": model_row["device_ms"] / inject["device_ms"],
+               "steps_run": box["s"], "card": card}
+    print(f"[train] summary {json.dumps(summary)}", flush=True)
+    del state, box
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_train_backends(dev, cfg, params):
+    """One MODEL step on each of sc, approx_mult and log_mult at full width
+    with 2 layers (the engine phase's embedding, head and first layers):
+    K4 or K1 launches, the loss and the grads are finite."""
+    from repro_torch.configs.base import TrainConfig, TrainMode
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.training import steps as step_lib
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params2 = Transformer(params.embed, params.final_norm, list(params.layers[:2]),
+                          params.lm_head)
+    model = build_model(cfg2)
+    data = SyntheticLM(cfg.vocab_size, seq_len=TRAIN_T, global_batch=TRAIN_B, seed=1)
+    tcfg = TrainConfig(total_steps=10, warmup_steps=2, learning_rate=2e-3)
+    want = {"sc": "sc_matmul_packed[quantized]",
+            "approx_mult": "elementwise_matmul[approx_mult,quantized]",
+            "log_mult": "elementwise_matmul[log_mult,quantized]"}
+    total = {}
+    for be, kernel in want.items():
+        approx = _train_approx(be, TrainMode.MODEL)
+        state = step_lib.init_train_state(model, 0, approx, tcfg, device=dev, params=params2)
+        step = step_lib.make_train_step(model, approx, tcfg)
+        (state, m), wall, launches = _timed(lambda: step(state, data.batch_at(0), (1, 0)))
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        if not launches.get(kernel) or not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise AssertionError(f"[train] {be} MODEL step: loss {loss}, grad norm {gnorm}, "
+                                 f"launches {launches}")
+        dev_ms, by_group = _traced_ms(lambda: step(state, data.batch_at(1), (1, 1)))
+        row = {"step": "model", "backend": be, "layers": 2, "loss": loss, "grad_norm": gnorm,
+               "wall_ms": wall, "device_ms": dev_ms, "by_group_ms": by_group,
+               "launches": launches}
+        print(f"[train] {json.dumps(row)}", flush=True)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del state, step
+        torch.cuda.empty_cache()
+    return total
+
+
+def _hold_weights(name, got, want, lr, steps):
+    """The CPU tests' rule for weights after train steps: within STEP but
+    for ADAM_FLIP of a tensor's elements (or one), none by more than 2 lr
+    a step."""
+    from repro_torch.convert import named_from_jax
+
+    g, w = named_from_jax(got["params"]), named_from_jax(want["params"])
+    for n in w:
+        d = np.abs(g[n] - w[n])
+        miss = d > STEP_ATOL + STEP_RTOL * np.abs(w[n])
+        if miss.sum() > max(1, ADAM_FLIP * miss.size) or d.max() > 2 * lr * steps:
+            raise AssertionError(f"{name}: weight {n}: {int(miss.sum())} beyond the step "
+                                 f"tolerance, max |diff| {float(d.max())}")
+
+
+def phase_train_reference(dev):
+    """The smoke config's calibrate, INJECT and MODEL steps on analog and
+    SC, on the card against the CPU (see the module docstring, phase 5)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import TrainConfig, TrainMode
+    from repro_torch.convert import train_state_from_jax, train_state_to_numpy
+    from repro_torch.core import registry
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.training import steps as step_lib
+
+    cfg = get_smoke_config("qwen2.5-3b")
+    model = build_model(cfg)
+    data = SyntheticLM(cfg.vocab_size, seq_len=16, global_batch=4, seed=2)
+    tcfg = TrainConfig(total_steps=10, warmup_steps=2, learning_rate=2e-3)
+    for be in ("analog", "sc"):
+        approx = _train_approx(be, TrainMode.INJECT)
+        cpu = step_lib.init_train_state(model, 0, approx, tcfg, device="cpu")
+        report = {"backend": be}
+        for s, kind in enumerate(("calibrate", "inject", "model")):
+            if kind == "calibrate":
+                fn = step_lib.make_calibration_step(model, approx, tcfg)
+            else:
+                fn = step_lib.make_train_step(model, approx, tcfg, TrainMode(kind))
+            # each step from the CPU's state, carried to the card: the
+            # calibration step's stats feed both INJECT steps
+            card = train_state_from_jax(train_state_to_numpy(cpu), device=dev)
+            seen, restore = _record_projections([be])
+            try:
+                card, mc = fn(card, data.batch_at(s), (1, s))
+            finally:
+                restore()
+            cpu, mh = fn(cpu, data.batch_at(s), (1, s))
+            lc, lh = float(mc["loss"]), float(mh["loss"])
+            if not (np.isfinite(lc) and np.isfinite(lh)):
+                raise AssertionError(f"[train-ref] {be} {kind}: losses {lc}, {lh}")
+            for name, fused, x, w, p, rng, epi, y in seen:
+                want = registry.get(name).emulate(x.detach().cpu(), w.detach().cpu(), p, rng)
+                if not torch.equal(y.cpu(), want):
+                    raise AssertionError(f"[train-ref] {be} {kind}: a projection "
+                                         f"{tuple(x.shape)}x{tuple(w.shape)} card != CPU")
+            if kind == "inject":
+                if seen:
+                    raise AssertionError(f"[train-ref] {be}: an INJECT step emulated")
+                if not abs(lc - lh) <= STEP_ATOL + STEP_RTOL * abs(lh):
+                    raise AssertionError(f"[train-ref] {be} INJECT: loss {lc} != {lh}")
+                _hold_weights(f"[train-ref] {be} INJECT", train_state_to_numpy(card),
+                              train_state_to_numpy(cpu), tcfg.learning_rate, 1)
+            elif len(seen) != 7 * cfg.n_layers + 1:
+                raise AssertionError(f"[train-ref] {be} {kind}: {len(seen)} projections")
+            elif (be == "sc" or kind == "model") and abs(lc - lh) > LOSS_RTOL * abs(lh):
+                # (analog's calibration loss is printed only: card and CPU
+                # have been seen to flip an ADC level there, 1.3e-3 apart)
+                raise AssertionError(f"[train-ref] {be} {kind}: loss {lc} != {lh}")
+            report[kind] = {"loss_card": lc, "loss_cpu": lh, "rel": abs(lc - lh) / abs(lh),
+                            "projections_bitwise": len(seen)}
+        print(f"[train-ref] {json.dumps(report)}", flush=True)
 
 
 def main() -> int:
@@ -764,19 +1065,30 @@ def main() -> int:
     phase_reference(dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    launches = phase_engine(dev, cfg, card)
+    launches, params = phase_engine(dev, cfg, card)
     torch.cuda.synchronize()
+    summary.update(phase_normal(dev))
+    train_launches = phase_train(dev, cfg, params, card)
+    for k, v in phase_train_backends(dev, cfg, params).items():
+        train_launches[k] = train_launches.get(k, 0) + v
+    del params
+    torch.cuda.empty_cache()
+    phase_train_reference(dev)
+    torch.cuda.synchronize()
+    print(f"[train] launches {json.dumps(train_launches)}", flush=True)
 
     kernels = []
-    for name in PATH_KERNELS:
+    for name in PATH_KERNELS + tuple(TRAIN_KERNELS):
         row = summary[name]
-        source, replaces = KERNEL_SOURCES[name]
+        source, replaces = {**KERNEL_SOURCES, **TRAIN_KERNELS}[name]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
-            "replaces": f"src/repro/kernels/{replaces}",
-            "launches": launches[name],
+            "replaces": os.path.normpath(f"src/repro/kernels/{replaces}"),
+            "launches": launches.get(name, 0) + train_launches.get(name, 0),
+            "engine_launches": launches.get(name, 0),
+            "train_launches": train_launches.get(name, 0),
             "shape": row["shape"],
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],

@@ -12,6 +12,7 @@ from repro_torch.configs.base import (
     Backend,
     Family,
     ModelConfig,
+    TrainConfig,
     TrainMode,
 )
 
@@ -52,6 +53,7 @@ __all__ = [
     "Backend",
     "Family",
     "ModelConfig",
+    "TrainConfig",
     "TrainMode",
     "get_config",
     "get_smoke_config",

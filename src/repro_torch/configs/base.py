@@ -1,10 +1,12 @@
 """Configuration dataclasses (copy of the parts of ``repro.configs.base``
-the serving slice needs).
+the serving and training slices need).
 
 * :class:`ModelConfig`  — architecture definition (one per ``--arch``).
 * :class:`ApproxConfig` — which approximate-hardware backend a model is
-  served for, with each backend's hardware parameters, and which mode
-  (bit-accurate MODEL emulation or none).
+  served or trained for, with each backend's hardware parameters, the
+  mode (MODEL, INJECT, PROXY_ONLY or none) and the calibration knobs.
+* :class:`TrainConfig`  — the optimizer's schedule and the memory policy
+  the training steps read.
 """
 from __future__ import annotations
 
@@ -62,9 +64,10 @@ class LogMultParams:
 
 
 class TrainMode(str, enum.Enum):
-    """How the approximate hardware is treated.  Serving uses MODEL
-    (bit-accurate emulation) or NO_MODEL (exact); PROXY_ONLY and INJECT
-    belong to training and are not ported yet."""
+    """How the approximate hardware is treated: MODEL (bit-accurate
+    emulated forward, proxy backward; also what serving runs), INJECT
+    (fast forward plus calibrated error), PROXY_ONLY (the proxy forward
+    and backward, an ablation) or NO_MODEL (exact)."""
 
     NO_MODEL = "no_model"
     MODEL = "model"
@@ -85,6 +88,15 @@ class ApproxConfig:
 
     # ordered (site-pattern, backend-name) pairs; first fnmatch match wins
     site_backends: Tuple[Tuple[str, str], ...] = ()
+
+    # --- ablations ---
+    proxy_in_backward: bool = True  # False => backprop through plain matmul
+                                    # (the paper's Tab. 2 "without activation")
+
+    # --- error injection / calibration (Sec. 3.2) ---
+    poly_degree: int = 3         # degree of mean/std error polynomials (Type 1)
+    calibrate_every: int = 10    # steps between calibration batches
+    inject_std_scale: float = 1.0
 
     skip_lm_head: bool = False  # keep the LM head exact
 
@@ -206,3 +218,45 @@ class ModelConfig:
     def __post_init__(self):
         if self.d_head == 0:
             object.__setattr__(self, "d_head", self.d_model // max(self.n_heads, 1))
+
+
+# ---------------------------------------------------------------------------
+# Training configuration
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The fields of the reference's ``TrainConfig`` that the training
+    steps read.  ``remat`` and ``optim_compress`` take only ``"none"``:
+    activation checkpointing and the compressed optimizer state come with
+    later slices, and a config asking for them raises here rather than
+    training without them."""
+
+    learning_rate: float = 3e-4
+    min_lr_ratio: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+
+    microbatches: int = 1            # gradient accumulation factor
+    remat: str = "none"              # the reference also takes block | group:<k>
+    optim_compress: str = "none"     # the reference also takes bf16 | sm3
+
+    def __post_init__(self):
+        if self.remat != "none":
+            raise NotImplementedError(
+                f"TrainConfig.remat={self.remat!r} is not yet ported to repro_torch "
+                "(only 'none')"
+            )
+        if self.optim_compress != "none":
+            raise NotImplementedError(
+                f"TrainConfig.optim_compress={self.optim_compress!r} is not yet ported to "
+                "repro_torch (only 'none')"
+            )
+        if self.microbatches < 1:
+            raise ValueError(f"TrainConfig.microbatches must be >= 1; got {self.microbatches}")

@@ -1,13 +1,17 @@
-"""Carry weights across from the JAX reference.
+"""Carry weights and training state across from the JAX reference.
 
 ``params_from_jax(tree)`` takes the reference's DENSE parameter pytree
 after ``jax.tree.map(np.asarray, params)`` — layer leaves stacked as
 ``[L, ...]`` — and returns the port's :class:`~repro_torch.models.
 transformer.Transformer` holding the same values, so both packages
 compute the same function, on ``device`` (the card unless the caller
-asks for the CPU, as the port's other entry points).  Only numpy is read;
-bfloat16 arrays (numpy's ``ml_dtypes`` extension type) are reinterpreted
-bit for bit.
+asks for the CPU, as the port's other entry points).
+``train_state_from_jax(state)`` does the same for a whole train state:
+the parameters, AdamW's ``m``, ``v``, ``master`` and ``count``, the
+calibration tree and the step.  ``train_state_to_numpy(state)`` goes the
+other way, into the reference's layout.  Only numpy is read; bfloat16
+arrays (numpy's ``ml_dtypes`` extension type) are reinterpreted bit for
+bit.
 """
 from __future__ import annotations
 
@@ -18,15 +22,26 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import Block, Transformer
+from repro_torch.optim.adamw import adamw_init
 
 
 def _tensor(a, device) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    a = np.asarray(a)
+    shape, a = a.shape, np.ascontiguousarray(a)  # (which makes a 0-dim array 1-dim)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a.copy())
-    return t.to(device)
+    return t.reshape(shape).to(device)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # numpy's bfloat16, as the reference's arrays carry it
+
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
 
 
 def params_from_jax(tree: Dict[str, Any], device="cuda") -> Transformer:
@@ -47,3 +62,95 @@ def params_from_jax(tree: Dict[str, Any], device="cuda") -> Transformer:
         layers,
         None if head is None else _tensor(head, device),
     )
+
+
+def named_from_jax(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """A tree shaped like the reference's parameters (its params, or an
+    AdamW slot) as ``{port parameter name: array}``, layer leaves sliced."""
+    out = {"embed": tree["embed"]["tok"], "final_norm": tree["final_norm"]}
+    lay = tree["layers"]
+    for l in range(lay["ln1"].shape[0]):
+        out[f"layers.{l}.ln1"] = lay["ln1"][l]
+        out[f"layers.{l}.ln2"] = lay["ln2"][l]
+        for part in ("attn", "mlp"):
+            for k, v in lay[part].items():
+                out[f"layers.{l}.{part}.{k}"] = v[l]
+    head = tree.get("head", {}).get("lm_head")
+    if head is not None:
+        out["lm_head"] = head
+    return out
+
+
+def named_to_jax(named: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """``{port parameter name: tensor}`` as numpy in the reference's
+    parameter layout, layer leaves stacked."""
+    n_layers = 1 + max(int(k.split(".")[1]) for k in named if k.startswith("layers."))
+
+    def stacked(suffix):
+        return np.stack([_numpy(named[f"layers.{l}.{suffix}"]) for l in range(n_layers)])
+
+    parts = {"attn": {}, "mlp": {}}
+    for k in named:
+        if k.startswith("layers.0."):
+            _, _, part, *leaf = k.split(".")
+            if leaf:
+                parts[part][leaf[0]] = stacked(f"{part}.{leaf[0]}")
+    tree = {
+        "embed": {"tok": _numpy(named["embed"])},
+        "final_norm": _numpy(named["final_norm"]),
+        "layers": {"ln1": stacked("ln1"), "ln2": stacked("ln2"), **parts},
+    }
+    if "lm_head" in named:
+        tree["head"] = {"lm_head": _numpy(named["lm_head"])}
+    return tree
+
+
+def _tree_from(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_from(v, device) for k, v in tree.items()}
+    return _tensor(np.asarray(tree), device)
+
+
+def _tree_to(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v) for k, v in tree.items()}
+    return _numpy(tree)
+
+
+def train_state_from_jax(state: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """The reference's train state (``jax.tree.map(np.asarray, state)``) as
+    the port's (:func:`repro_torch.training.steps.init_train_state`): the
+    same parameters, trainable; AdamW's slots (a float32 parameter is its
+    own master, which the reference keeps equal to it); the calibration
+    tree; the step."""
+    params = params_from_jax(state["params"], device)
+    for p in params.parameters():
+        p.requires_grad_(True)
+    named = dict(params.named_parameters())
+    opt = adamw_init(named)
+    for slot in ("m", "v", "master"):
+        for n, a in named_from_jax(state["opt"][slot]).items():
+            dst = opt[slot][n]
+            if slot == "master" and dst.data_ptr() == named[n].data_ptr():
+                continue
+            dst.copy_(_tensor(a, device))
+    opt["count"] = torch.tensor(int(np.asarray(state["opt"]["count"])), dtype=torch.int32,
+                                device=params.device)
+    return {"params": params, "opt": opt, "calib": _tree_from(state["calib"], params.device),
+            "step": int(np.asarray(state["step"]))}
+
+
+def train_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's train state as numpy in the reference's layout."""
+    opt = state["opt"]
+    return {
+        "params": named_to_jax(dict(state["params"].named_parameters())),
+        "opt": {
+            "m": named_to_jax(opt["m"]),
+            "v": named_to_jax(opt["v"]),
+            "master": named_to_jax(opt["master"]),
+            "count": np.asarray(int(opt["count"]), np.int32),
+        },
+        "calib": _tree_to(state["calib"]),
+        "step": np.asarray(state["step"], np.int32),
+    }

@@ -1,7 +1,8 @@
 """Bit-accurate forward emulation of the approximate hardware (port of
 ``repro.core.backends``: the sc, analog, approx_mult and log_mult
 emulators, their fused variants, ``fake_quant_unipolar`` and the built-in
-registry entries).
+registry entries with their proxies, fast forwards and calibration
+degrees).
 
 The value-domain scaling — dynamic scales, split-unipolar planes,
 operand quantisation — runs in plain torch, op for op as in the
@@ -38,6 +39,7 @@ from repro_torch.configs.base import (
     LogMultParams,
     SCParams,
 )
+from repro_torch.core import proxy as proxy_lib
 from repro_torch.core import registry
 from repro_torch.core.proxy import split_signed, tensor_scale
 from repro_torch.core.registry import BackendSpec, concat_planes, split_unipolar_contract
@@ -179,12 +181,15 @@ registry.register(BackendSpec(
     name=Backend.EXACT.value,
     params_cls=type(None),
     emulate=_emulate_exact,
+    proxy_forward=proxy_lib.identity_proxy,
+    calib_degree=0,
 ))
 
 registry.register(BackendSpec(
     name=Backend.SC.value,
     params_cls=SCParams,
     emulate=_emulate_sc,
+    proxy_forward=proxy_lib.sc_proxy,
     fused_emulate=_fused_emulate_sc,
     kernels=kops.KERNELS["sc"],
 ))
@@ -193,6 +198,11 @@ registry.register(BackendSpec(
     name=Backend.ANALOG.value,
     params_cls=AnalogParams,
     emulate=_emulate_analog,
+    proxy_forward=proxy_lib.analog_proxy,
+    # Type 2 (paper): plain matmul on non-calibration INJECT batches, and
+    # scalar (degree-0) error statistics
+    fast_forward=proxy_lib.identity_proxy,
+    calib_degree=0,
     fused_emulate=_fused_emulate_analog,
     kernels=kops.KERNELS["analog"],
 ))
@@ -201,6 +211,7 @@ registry.register(BackendSpec(
     name=Backend.APPROX_MULT.value,
     params_cls=ApproxMultParams,
     emulate=_emulate_approx_mult,
+    proxy_forward=proxy_lib.identity_proxy,
     fused_emulate=_fused_emulate_approx_mult,
     kernels=kops.KERNELS["approx_mult"],
 ))
@@ -209,6 +220,7 @@ registry.register(BackendSpec(
     name=Backend.LOG_MULT.value,
     params_cls=LogMultParams,
     emulate=_emulate_log_mult,
+    proxy_forward=proxy_lib.identity_proxy,
     fused_emulate=_fused_emulate_log_mult,
     kernels=kops.KERNELS["log_mult"],
 ))

@@ -1,9 +1,32 @@
-"""Operand splitting and dynamic scales (port of ``split_signed``,
-``tensor_scale`` and ``row_scale`` from ``repro.core.proxy``; the proxy
-activations belong to training and are not ported yet)."""
+"""Operand splitting, dynamic scales and the approximation-proxy
+activations (port of ``repro.core.proxy``: ``split_signed``,
+``tensor_scale``, ``row_scale``, ``sc_or_act``, ``analog_clamp_act``,
+``unipolar_matmuls``, ``sc_proxy``, ``analog_proxy``, ``identity_proxy``
+and ``proxy_forward``; ``int8_dequant`` comes with the approximate
+backward).
+
+The proxies are smooth surrogates of the approximate accumulators, applied
+to the positive and negative halves of the accumulation (paper Sec. 3.1):
+
+    SC_act(x)     = (1 - e^{-x_pos}) - (1 - e^{-x_neg})
+    Analog_act(x) = HardTanh(x_pos)  - HardTanh(x_neg)
+
+MODEL mode's backward is the VJP of a backend's proxy
+(:mod:`repro_torch.core.injection`), so the ops here are written to give
+the reference's gradients as well as its values: the scales are detached
+(the reference's ``stop_gradient``), ``|x|`` passes ``+g`` at 0 as
+``jnp.abs``'s VJP does, the clamp is ``maximum`` then ``minimum``, whose
+gradients split evenly at a tie as ``jnp.clip``'s do, and every Python
+constant meets a tensor in the tensor's dtype (JAX's weak typing).
+"""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from repro_torch.configs.base import AnalogParams, ApproxConfig, Backend, SCParams
+from repro_torch.kernels.ref import const
 
 OPERAND_EPS = 1e-6  # the floor of a dynamic scale
 
@@ -14,17 +37,81 @@ def split_signed(x):
 
 
 def tensor_scale(x, eps: float = OPERAND_EPS):
-    """Per-tensor dynamic scale: max |x|, never below eps."""
-    m = torch.amax(torch.abs(x))
+    """Per-tensor dynamic scale: max |x|, never below eps (no gradient)."""
+    m = torch.amax(torch.abs(x.detach()))
     return torch.maximum(m, torch.tensor(eps, dtype=x.dtype, device=x.device))
 
 
 def row_scale(x, eps: float = OPERAND_EPS):
     """Per-row (per-token) dynamic scale: max |x| over the contraction
-    axis, keepdims.  Per-token quantisation keeps the multiplier-error
-    emulations batch-invariant: a request's quantisation grid never
-    depends on what shares its slot batch.  The SC and analog emulators
-    keep per-tensor activation scales (a device property), as in the
-    reference, so their outputs depend on the whole batch."""
-    m = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    axis, keepdims (no gradient).  Per-token quantisation keeps the
+    multiplier-error emulations batch-invariant: a request's quantisation
+    grid never depends on what shares its slot batch.  The SC and analog
+    emulators keep per-tensor activation scales (a device property), as in
+    the reference, so their outputs depend on the whole batch."""
+    m = torch.amax(torch.abs(x.detach()), dim=-1, keepdim=True)
     return torch.maximum(m, torch.tensor(eps, dtype=x.dtype, device=x.device))
+
+
+def _abs(x):
+    """``|x|`` with ``jnp.abs``'s gradient: ``+g`` where ``x >= 0``
+    (``torch.abs`` passes 0 at 0)."""
+    return torch.where(x >= 0, x, -x)
+
+
+def sc_or_act(z):
+    """Mean behaviour of an OR-accumulator over unipolar product streams."""
+    return 1.0 - torch.exp(-z)
+
+
+def analog_clamp_act(z, limit: float):
+    """HardTanh on a unipolar half: ADC saturation of the accumulated sum."""
+    return torch.minimum(torch.maximum(z, const(0.0, z)), const(limit, z))
+
+
+def unipolar_matmuls(x, w, gx: float, gw: float):
+    """Scaled unipolar contraction pair ``(z_pos, z_neg, rescale)``: the
+    value-domain output is ``(act(z_pos) - act(z_neg)) * rescale``.  Two
+    contractions, not four: ``z_pos - z_neg = x@w`` (signed) and
+    ``z_pos + z_neg = |x|@|w|`` (magnitude), as in the reference."""
+    sx = tensor_scale(x)
+    sw = tensor_scale(w)
+    xs = x * (const(gx, sx) / sx)
+    ws = w * (const(gw, sw) / sw)
+    signed = xs @ ws
+    magnitude = _abs(xs) @ _abs(ws)
+    z_pos = (magnitude + signed) * 0.5
+    z_neg = (magnitude - signed) * 0.5
+    rescale = (sx * sw) / const(gx * gw, sx)
+    return z_pos, z_neg, rescale
+
+
+def sc_proxy(x, w, p: SCParams):
+    """OR-accumulator saturation proxy for stochastic computing."""
+    z_pos, z_neg, rescale = unipolar_matmuls(x, w, p.gain, p.gain)
+    return (sc_or_act(z_pos) - sc_or_act(z_neg)) * rescale
+
+
+def analog_proxy(x, w, p: AnalogParams):
+    """ADC HardTanh saturation proxy for analog arrays: each half-sum
+    clamps at the total saturation point of the arrays over the 2K
+    split-unipolar ports."""
+    z_pos, z_neg, rescale = unipolar_matmuls(x, w, 1.0, 1.0)
+    n_arrays = max(1, -(-(2 * x.shape[-1]) // p.array_size))
+    limit = p.adc_range * n_arrays
+    return (analog_clamp_act(z_pos, limit) - analog_clamp_act(z_neg, limit)) * rescale
+
+
+def identity_proxy(x, w, p=None):
+    """Plain matmul: the proxy of the backends whose error enters in the
+    multiplier only (approx-mult, log-mult), whose accumulation is exact."""
+    return x @ w
+
+
+def proxy_forward(x, w, cfg: ApproxConfig, backend: Optional[Backend] = None):
+    """The proxy-activation forward of ``x @ w`` on a backend (``backend``
+    overrides ``cfg.backend``), through the registry."""
+    from repro_torch.core import registry  # deferred: registry -> backends -> proxy
+
+    backend = backend if backend is not None else cfg.backend
+    return registry.get(backend).proxy_forward(x, w, cfg.params_for(backend))

@@ -1,9 +1,10 @@
 """Approximate-backend registry (port of ``repro.core.registry``).
 
 Every hardware target is one :class:`BackendSpec`: its params class, its
-bit-accurate emulator, its optional fused emulator and its kernel
-handles.  ``dense()`` dispatches through :func:`get`.  The built-in specs
-(exact, sc, approx_mult, analog, log_mult) are registered by
+bit-accurate emulator, its proxy activation, its fast forward, its
+calibration degree, its optional fused emulator and its kernel handles.
+``dense()`` dispatches through :func:`get`.  The built-in specs (exact,
+sc, approx_mult, analog, log_mult) are registered by
 :mod:`repro_torch.core.backends`.
 """
 from __future__ import annotations
@@ -18,12 +19,20 @@ from repro_torch.configs.base import Backend
 
 @dataclasses.dataclass(frozen=True)
 class BackendSpec:
-    """What serving needs to emulate one hardware target.
+    """What serving and training need to emulate one hardware target.
 
     * ``emulate``       — bit-accurate forward ``(x, w, params, rng) -> y``;
       ``rng`` is the site's generator-sequence source (see
       :meth:`repro_torch.core.approx_linear.ApproxCtx.site_rng`), which
       only the stochastic backends read.
+    * ``proxy_forward`` — smooth surrogate ``(x, w, params) -> y`` whose
+      VJP is the MODEL-mode backward (paper Sec. 3.1).  ``None`` leaves the
+      backend serve-only: training on it raises.
+    * ``fast_forward``  — the cheap INJECT-mode forward whose residual the
+      calibrated injection corrects; ``None`` means the proxy (Type-1
+      backends); analog (Type 2) takes a plain matmul.
+    * ``calib_degree``  — the error fit's polynomial degree, or ``None``
+      for ``ApproxConfig.poly_degree`` (analog and exact pin 0).
     * ``fused_emulate`` — ``(x, w, params, rng, epi) -> y`` with the
       chip/calibration epilogue ``epi`` applied in the same kernel, or
       ``None`` for no fused path (``dense()`` then runs ``emulate``).
@@ -33,8 +42,26 @@ class BackendSpec:
     name: str
     params_cls: type
     emulate: Callable
+    proxy_forward: Optional[Callable] = None
+    fast_forward: Optional[Callable] = None
+    calib_degree: Optional[int] = None
     fused_emulate: Optional[Callable] = None
     kernels: Mapping[str, Callable] = dataclasses.field(default_factory=dict)
+
+    def proxy(self, x, w, params):
+        """The proxy forward; raises for a serve-only spec."""
+        if self.proxy_forward is None:
+            raise NotImplementedError(
+                f"backend {self.name!r} has no proxy_forward: it can serve (MODEL forward) "
+                "but not train"
+            )
+        return self.proxy_forward(x, w, params)
+
+    def fast(self, x, w, params):
+        """The INJECT-mode forward: ``fast_forward``, else the proxy."""
+        if self.fast_forward is not None:
+            return self.fast_forward(x, w, params)
+        return self.proxy(x, w, params)
 
 
 _REGISTRY: Dict[str, BackendSpec] = {}

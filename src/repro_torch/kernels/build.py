@@ -86,6 +86,8 @@ SIGNATURES = {
     "prng": {
         # path, n_path, ux, uw, ports, bits, stream
         "sc_draws": (_P, _I, _P, _P, _I, _I, _P),
+        # path, n_path, out, n, stream
+        "normal_draws": (_P, _I, _P, ctypes.c_longlong, _P),
     },
     "analog_matmul": {
         # M, N, K, array_size, adc_bits
@@ -131,6 +133,8 @@ LAUNCHES: Dict[str, int] = {
     "sc_matmul_packed_fused": 0,
     # the generator draws of an SC key path (threefry), in front of the tables
     "sc_draws": 0,
+    # the Gaussian noise of an INJECT-mode projection (threefry, erfinv)
+    "normal_draws": 0,
     # the threshold tables of a set of SC draws, in front of K4 and K5
     "sc_tables": 0,
     "analog_matmul": 0,

@@ -1,5 +1,6 @@
 // The generator sequences of one SC projection on Hopper, bitwise those of
-// jax.random (threefry2x32, partitionable layout).
+// jax.random (threefry2x32, partitionable layout), and the Gaussian noise
+// of one INJECT-mode projection.
 //
 // Replaces the stream generation in front of the Pallas TPU kernels,
 // repro/kernels/ops.py::sc_matmul (jax.random.uniform, not a Pallas
@@ -14,6 +15,16 @@
 // keeps its top 23 bits as the mantissa of a float in [1, 2), minus 1 (an
 // exact subtraction).  PRNGKey(seed) is (0, seed mod 2^32), fold_in(key,
 // d) the block of key on (0, d), split(key)[j] the block on (0, j).
+//
+// Replaces, for INJECT mode, repro/core/calibration.py::sample_error's
+//   noise = jax.random.normal(key, y.shape, float32)
+// -> normals(), one launch per projection: the same bits mapped to u in
+// (-1, 1) as max(lo, f * 2 + lo), lo the float after -1, and sqrt(2) *
+// erfinv(u) with XLA's float32 erfinv polynomial (w = -log1p(-u*u), the
+// coefficient set for w < 5 or not), its steps fused multiply-adds as XLA
+// contracts them, each taken in float64 (exact product) and rounded once:
+// bitwise the plain version on the card, within 3 float32 ulps of
+// jax.random.normal on the CPU (whose log1p is XLA's own).
 //
 // The key path comes as a few int32 words in device memory, not as
 // launch arguments: every thread derives the key itself (one block per
@@ -62,6 +73,30 @@ __device__ __forceinline__ float uniform_at(Key k, uint64_t i) {
   return __uint_as_float(((r.a ^ r.b) >> 9) | 0x3F800000u) - 1.0f;
 }
 
+// XLA's ErfInv32 coefficients, w < 5 and w >= 5 (kernels/prng.py)
+__constant__ float kErfInvLt5[9] = {2.81022636e-08f,  3.43273939e-07f, -3.5233877e-06f,
+                                    -4.39150654e-06f, 0.00021858087f,  -0.00125372503f,
+                                    -0.00417768164f,  0.246640727f,    1.50140941f};
+__constant__ float kErfInvGe5[9] = {-0.000200214257f, 0.000100950558f, 0.00134934322f,
+                                    -0.00367342844f,  0.00573950773f,  -0.0076224613f,
+                                    0.00943887047f,   1.00167406f,     2.83297682f};
+constexpr float kNormalLo = -0.99999994f;  // nextafter(-1, 0)
+constexpr float kSqrt2 = 1.41421354f;
+
+__device__ __forceinline__ float erfinv_xla(float x) {
+  float w = -log1pf(-__fmul_rn(x, x));
+  const bool lt = w < 5.0f;
+  w = lt ? __fsub_rn(w, 2.5f) : __fsub_rn(sqrtf(w), 3.0f);
+  const double wd = (double)w;
+  float p = lt ? kErfInvLt5[0] : kErfInvGe5[0];
+#pragma unroll
+  for (int i = 1; i < 9; ++i) {
+    const double c = (double)(lt ? kErfInvLt5[i] : kErfInvGe5[i]);
+    p = __double2float_rn(__dadd_rn(c, __dmul_rn((double)p, wd)));
+  }
+  return fabsf(x) == 1.0f ? x * __int_as_float(0x7F800000) : __fmul_rn(p, x);
+}
+
 constexpr int THREADS = 256;
 constexpr int PER_THREAD = 8;
 
@@ -90,6 +125,24 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// Element i of n normals: a block takes THREADS * PER_THREAD consecutive
+// elements, a thread every THREADS-th of them.
+__global__ void __launch_bounds__(THREADS)
+    normals(const int32_t* __restrict__ path, int n_path, float* __restrict__ out, long long n) {
+  const long long first = blockIdx.x * (long long)(THREADS * PER_THREAD) + threadIdx.x;
+  if (first >= n) return;
+  Key k{0u, (uint32_t)path[0]};
+  for (int j = 1; j < n_path; ++j) k = threefry(k, 0u, (uint32_t)path[j]);
+#pragma unroll
+  for (int e = 0; e < PER_THREAD; ++e) {
+    const long long i = first + (long long)e * THREADS;
+    if (i >= n) break;
+    const float f = uniform_at(k, (uint64_t)i);
+    const float u = fmaxf(kNormalLo, __fadd_rn(__fmul_rn(f, 2.0f), kNormalLo));
+    out[i] = __fmul_rn(kSqrt2, erfinv_xla(u));
+  }
+}
+
 }  // namespace
 }  // namespace repro_prng
 
@@ -105,6 +158,16 @@ extern "C" int sc_draws(const int32_t* path, int n_path, float* ux, float* uw, i
   constexpr long long per_block = THREADS * PER_THREAD;
   draws<<<(unsigned)((n + per_block - 1) / per_block), THREADS, 0, st>>>(path, n_path, ux, uw,
                                                                           bits, n_w);
+  return (int)cudaGetLastError();
+}
+
+// out [n], float32 standard normals of the key path path[0 .. n_path).
+extern "C" int normal_draws(const int32_t* path, int n_path, float* out, long long n,
+                            void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n == 0) return 0;
+  constexpr long long per_block = THREADS * PER_THREAD;
+  normals<<<(unsigned)((n + per_block - 1) / per_block), THREADS, 0, st>>>(path, n_path, out, n);
   return (int)cudaGetLastError();
 }
 

@@ -53,13 +53,29 @@ def sc_draws(key: Tuple[int, ...], n_ports: int, n_bits: int, device):
     on the card by one launch of ``csrc/prng.cu``."""
     device = torch.device(device)
     if device.type == "cuda":
-        # pinned, so the copy is queued on the stream and the host does not wait
-        words = torch.tensor(_prng.path_words(key), dtype=torch.int32, pin_memory=True)
-        words = words.to(device, non_blocking=True)
-        return _prng.sc_draws_cuda(words, n_ports, n_bits)
+        return _prng.sc_draws_cuda(_path_on_card(key, device), n_ports, n_bits)
     if device.type == "cpu":
         return _prng.sc_draws_ref(key, n_ports, n_bits)
     raise ValueError(f"SC draws are made on the CPU (plain version) or a CUDA device "
+                     f"(kernel); got {device}")
+
+
+def _path_on_card(key, device):
+    # pinned, so the copy is queued on the stream and the host does not wait
+    words = torch.tensor(_prng.path_words(key), dtype=torch.int32, pin_memory=True)
+    return words.to(device, non_blocking=True)
+
+
+def normal(key: Tuple[int, ...], shape, device):
+    """Standard normals (float32) of a key path: ``jax.random.normal`` of
+    the path's key (:func:`repro_torch.kernels.prng.normal`), on the CPU by
+    the plain version and on the card by one launch of ``csrc/prng.cu``."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return _prng.normal_cuda(_path_on_card(key, device), shape)
+    if device.type == "cpu":
+        return _prng.normal(_prng.key_of_path(key), shape)
+    raise ValueError(f"normal draws are made on the CPU (plain version) or a CUDA device "
                      f"(kernel); got {device}")
 
 

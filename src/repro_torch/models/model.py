@@ -34,6 +34,9 @@ class Model:
     def init_cache(self, batch: int, max_seq: int, device="cuda") -> Dict[str, Any]:
         return D.init_cache(self.cfg, batch, max_seq, resolve_device(device))
 
+    def init_calibration(self, approx, device="cuda") -> Dict[str, Any]:
+        return T.init_calibration(self.cfg, approx, resolve_device(device))
+
     def apply(self, params, batch, **kw) -> T.ApplyOutput:
         return T.apply_model(params, batch, self.cfg, **kw)
 

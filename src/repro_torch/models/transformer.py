@@ -1,6 +1,7 @@
 """Decoder-LM assembly, DENSE family (port of ``repro.models.transformer``:
-``padded_vocab``, ``init_params``, ``_attn_block_apply``, ``_embed``,
-``_lm_head`` and ``apply_model`` with ``return_cache``).
+``padded_vocab``, ``init_params``, ``init_calibration``,
+``_attn_block_apply``, ``_embed``, ``_lm_head`` and ``apply_model`` with
+``return_cache``, ``calib`` and ``collect``).
 
 The parameters are an ``nn.Module`` tree (:class:`Transformer`); a Python
 loop over ``layers`` takes the place of the reference's ``lax.scan``.
@@ -14,12 +15,15 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ApproxConfig, Family, ModelConfig
+from repro_torch.configs.base import ApproxConfig, Family, ModelConfig, TrainMode
+from repro_torch.core import calibration as calib_lib
 from repro_torch.core.approx_linear import ApproxCtx, dense
 from repro_torch.models import layers as L
 
 # the value the reference folds into the forward's key for the LM head
 HEAD_FOLD = 2**20
+ATTN_SITES = ("attn_q", "attn_k", "attn_v", "attn_o")
+MLP_SITES = ("mlp_gate", "mlp_up", "mlp_down")
 
 
 class Block(nn.Module):
@@ -91,10 +95,41 @@ def init_params(cfg: ModelConfig, seed: int, device) -> Transformer:
     return Transformer(embed, ones(), layers, lm_head)
 
 
+def init_calibration(cfg: ModelConfig, approx: ApproxConfig, device="cpu") -> Dict[str, Any]:
+    """Zero calibration stats, laid out as the reference's: ``"layers"``
+    maps each block site to a site whose leaves are stacked over the
+    layers (``mean`` and ``var`` [L, deg+1], ``scale`` [L]), ``"head"``
+    holds ``lm_head``.  Each site takes the degree of the backend it
+    resolves to."""
+    check_dense(cfg)
+    n = cfg.n_layers
+    layers = {}
+    for site in ATTN_SITES + MLP_SITES:
+        one = calib_lib.init_site_for(approx, site, device)
+        layers[site] = {k: v.expand((n,) + v.shape).clone() for k, v in one.items()}
+    head = {"lm_head": calib_lib.init_site_for(approx, "lm_head", device)}
+    return {"layers": layers, "head": head}
+
+
+def _layer_calibration(calib: Dict[str, Any], l: int) -> Dict[str, Any]:
+    """Layer ``l``'s sites of a calibration tree."""
+    return {site: {k: v[l] for k, v in st.items()} for site, st in calib["layers"].items()}
+
+
+def _stack_layers(per_layer) -> Dict[str, Any]:
+    """The layers' collected sites, stacked as :func:`init_calibration`
+    lays them out."""
+    return {
+        site: {k: torch.stack([c[site][k] for c in per_layer]) for k in per_layer[0][site]}
+        for site in per_layer[0]
+    }
+
+
 @dataclasses.dataclass
 class ApplyOutput:
     logits: torch.Tensor
     cache: Optional[Dict[str, Any]] = None  # prefill KV cache
+    collected: Optional[Dict[str, Any]] = None  # calibration pass: fitted stats
 
 
 def _attn_block_apply(x, p: Block, cfg, ctx, positions, chunk_q):
@@ -128,6 +163,8 @@ def apply_model(
     return_cache: bool = False,
     rng: Optional[Tuple[int, ...]] = None,
     draws: Optional[Callable] = None,
+    calib: Optional[Dict[str, Any]] = None,
+    collect: bool = False,
 ) -> ApplyOutput:
     """Full-sequence forward.  batch: {'tokens': [B, T] int}.
 
@@ -137,22 +174,35 @@ def apply_model(
     :func:`repro_torch.models.decode.init_cache` with ``max_seq = T``.
 
     ``rng`` (a key path, default ``(0,)``) and ``draws`` feed the
-    stochastic backends (see :class:`ApproxCtx`): layer ``l`` folds in
-    ``l`` and the LM head ``2**20``, as the reference does.
+    stochastic backends and INJECT mode's noise (see :class:`ApproxCtx`):
+    layer ``l`` folds in ``l`` and the LM head ``2**20``, as the reference
+    does.  ``calib`` (default: zero stats, :func:`init_calibration`, where
+    INJECT mode or a calibration pass reads them) gives each layer's ctx
+    its sites; with ``collect`` the forward is a
+    calibration pass and the output carries the fitted stats, laid out as
+    ``calib``.
     """
     check_dense(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
     x = _embed(params, cfg, batch, dtype)
     B, T, _ = x.shape
     positions = torch.arange(T, dtype=torch.int32, device=x.device).expand(B, T)
-    ctx = ApproxCtx(cfg=approx, rng=tuple(rng) if rng is not None else (0,), draws=draws)
-    ks, vs = [], []
+    if calib is None and (collect or approx.mode == TrainMode.INJECT):
+        calib = init_calibration(cfg, approx, x.device)
+    ctx = ApproxCtx(cfg=approx, rng=tuple(rng) if rng is not None else (0,), draws=draws,
+                    collect=collect)
+    ks, vs, coll = [], [], []
     for l, p in enumerate(params.layers):
-        x, (k, v) = _attn_block_apply(x, p, cfg, ctx.for_layer(l), positions, chunk_q)
+        lctx = ctx.for_layer(l, None if calib is None else _layer_calibration(calib, l))
+        x, (k, v) = _attn_block_apply(x, p, cfg, lctx, positions, chunk_q)
+        coll.append(lctx.collected)
         if return_cache:
             ks.append(k)
             vs.append(v)
+    lctx = None  # the last layer's draws go before the head draws its own
     x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
-    logits = _lm_head(x, params, cfg, ctx.for_layer(HEAD_FOLD))
+    hctx = ctx.for_layer(HEAD_FOLD, None if calib is None else calib["head"])
+    logits = _lm_head(x, params, cfg, hctx)
     cache = {"k": torch.stack(ks), "v": torch.stack(vs)} if return_cache else None
-    return ApplyOutput(logits=logits, cache=cache)
+    collected = {"layers": _stack_layers(coll), "head": hctx.collected} if collect else None
+    return ApplyOutput(logits=logits, cache=cache, collected=collected)

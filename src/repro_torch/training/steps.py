@@ -1,0 +1,157 @@
+"""Train, calibration and eval steps (port of ``repro.training.steps``:
+``init_train_state``, ``make_train_step``, ``make_calibration_step`` and
+``make_eval_step``; the reference's ``StepCache`` and its chip-, switch-
+and backward-gate-aware variants come with later slices).
+
+The paper's schedule alternates graphs (INJECT or bit-accurate MODEL
+forward), so each step is built for one mode.  The reference jits its
+steps; these run eagerly, op by op, which is also how the reference is
+held to them on the CPU.
+
+A train state is ``{"params", "opt", "calib", "step"}``: the model's
+``Transformer`` (trainable), the AdamW state (:mod:`repro_torch.optim.
+adamw`), the calibration tree (:func:`repro_torch.models.transformer.
+init_calibration`) and the step count.  A train step updates the
+parameters and the optimizer state in place and returns the state.
+
+``rng`` is a key path (see :class:`repro_torch.core.approx_linear.
+ApproxCtx`): the reference's ``fold_in(PRNGKey(1), s)`` is ``(1, s)``,
+and microbatch ``i`` of a step folds in ``i`` as the reference does.
+Batches are the numpy dicts of :class:`repro_torch.data.SyntheticLM` (or
+tensors), moved to the parameters' device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ApproxConfig, TrainConfig, TrainMode
+from repro_torch.models.model import Model, resolve_device
+from repro_torch.optim.adamw import adamw_init, adamw_update
+from repro_torch.training.losses import accuracy, lm_loss
+
+
+def init_train_state(model: Model, seed: int, approx: ApproxConfig,
+                     tcfg: Optional[TrainConfig] = None, *, device="cuda",
+                     params=None) -> Dict[str, Any]:
+    """A fresh train state: ``model.init(seed)`` on ``device`` (or the
+    given ``params``, which are trained in place from here on), every
+    weight made trainable, AdamW's state, zero calibration stats."""
+    if tcfg is not None and tcfg.optim_compress != "none":
+        raise NotImplementedError("compressed optimizer state is not yet ported")
+    device = resolve_device(device)
+    if params is None:
+        params = model.init(seed, device)
+    for p in params.parameters():
+        p.requires_grad_(True)
+    return {
+        "params": params,
+        "opt": adamw_init(dict(params.named_parameters())),
+        "calib": model.init_calibration(approx, params.device),
+        "step": 0,
+    }
+
+
+def _batch(batch, device) -> Dict[str, torch.Tensor]:
+    """A batch's arrays as integer tensors on ``device``."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.asarray(v)) if not isinstance(v, torch.Tensor) else v
+        out[k] = t.to(device=device, dtype=torch.long)
+    return out
+
+
+def _loss(params, batch, model: Model, approx, calib, rng):
+    out = model.apply(params, batch, approx=approx, calib=calib, rng=rng)
+    return lm_loss(out.logits, batch["labels"])
+
+
+def _split_micro(batch, n: int, i: int):
+    return {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i] for k, v in batch.items()}
+
+
+def make_train_step(model: Model, approx: ApproxConfig, tcfg: TrainConfig,
+                    mode: Optional[TrainMode] = None):
+    """A train step for one approx mode (default: ``approx.mode``):
+    ``step(state, batch, rng) -> (state, metrics)``.
+
+    With ``tcfg.microbatches`` > 1 the batch splits into that many
+    microbatches along its rows, each with ``rng`` + ``(i,)``; their
+    gradients sum in float32 and divide by the count, as the reference's
+    scan does."""
+    if mode is not None:
+        approx = dataclasses.replace(approx, mode=mode)
+
+    def step(state, batch, rng: Tuple[int, ...]):
+        params, calib = state["params"], state["calib"]
+        named = dict(params.named_parameters())
+        batch = _batch(batch, params.device)
+        rng = tuple(rng)
+
+        def grad_one(mb, r):
+            loss = _loss(params, mb, model, approx, calib, r)
+            gs = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+            gs = [torch.zeros_like(t) if g is None else g for g, t in zip(gs, named.values())]
+            return dict(zip(named, gs)), loss.detach()
+
+        n_micro = tcfg.microbatches
+        if n_micro <= 1:
+            grads, total = grad_one(batch, rng)
+        else:
+            grads, total = None, torch.zeros((), device=params.device)
+            for i in range(n_micro):
+                g, t = grad_one(_split_micro(batch, n_micro, i), rng + (i,))
+                if grads is None:
+                    grads = {n: torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+                             for n, v in g.items()}
+                for n, v in g.items():
+                    grads[n] = grads[n] + v.to(torch.float32)
+                total = total + t
+                del g
+            grads = {n: v / n_micro for n, v in grads.items()}
+            total = total / n_micro
+        opt_metrics = adamw_update(grads, state["opt"], named, tcfg)
+        state["step"] += 1
+        metrics = {"loss": total, "aux_loss": torch.zeros_like(total), **opt_metrics,
+                   "total_loss": total}
+        return state, metrics
+
+    return step
+
+
+def make_calibration_step(model: Model, approx: ApproxConfig, tcfg: TrainConfig):
+    """A forward pass with the bit-accurate emulation that refreshes the
+    error-injection stats (paper Sec. 3.2's calibration batches):
+    ``step(state, batch, rng) -> (state with the new calib, metrics)``."""
+    del tcfg
+
+    @torch.no_grad()
+    def step(state, batch, rng: Tuple[int, ...]):
+        params = state["params"]
+        batch = _batch(batch, params.device)
+        out = model.apply(params, batch, approx=approx, calib=state["calib"], rng=tuple(rng),
+                          collect=True)
+        return dict(state, calib=out.collected), {"loss": lm_loss(out.logits, batch["labels"])}
+
+    return step
+
+
+def make_eval_step(model: Model, approx: ApproxConfig):
+    """Validation with the bit-accurate emulation (what the hardware would
+    produce): MODEL mode whenever the config has approximate backends.
+    ``step(state, batch, rng) -> {"loss", "accuracy"}``."""
+    eval_cfg = (dataclasses.replace(approx, mode=TrainMode.MODEL)
+                if approx.approx_backends else approx)
+
+    @torch.no_grad()
+    def step(state, batch, rng: Tuple[int, ...]):
+        params = state["params"]
+        batch = _batch(batch, params.device)
+        out = model.apply(params, batch, approx=eval_cfg, calib=state["calib"], rng=tuple(rng))
+        return {"loss": lm_loss(out.logits, batch["labels"]),
+                "accuracy": accuracy(out.logits, batch["labels"])}
+
+    return step

@@ -1068,3 +1068,79 @@ def test_k6_many_rows_at_lm_head_width(cuda, adc_bits):
     want = ref.analog_matmul_ref(x, w, A, adc_bits, 4.0)
     assert float(want.abs().max()) > 0
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# Training: the normal entry of prng.cu, and MODEL mode's autograd.Function
+# on K1, K4 and K6
+# ---------------------------------------------------------------------------
+
+NORMAL_PATHS = [(0,), (1, 3, 17, 2**31 - 5)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", NORMAL_PATHS, ids=["seed", "site"])
+@pytest.mark.parametrize("shape", [(256, 2048), (256, 11008), (3, 7), (1, 0)])
+def test_normal_kernel_bitwise(cuda, path, shape):
+    """The normal entry against its plain version on the card, bitwise, one
+    launch a call; within 3 float32 ulps of the plain version on the CPU
+    (the two libms' log1p)."""
+    from repro_torch.kernels import ops, prng
+
+    before = build.LAUNCHES["normal_draws"]
+    got = ops.normal(path, shape, cuda)
+    assert build.LAUNCHES["normal_draws"] == before + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    want = prng.normal(prng.key_of_path(path), shape, cuda)
+    assert torch.equal(got, want)
+    cpu = prng.normal(prng.key_of_path(path), shape)
+    ulps = (got.cpu().view(torch.int32).long() - cpu.view(torch.int32).long()).abs()
+    assert ulps.numel() == 0 or int(ulps.max()) <= 3
+
+
+TRAIN_KERNELS = [("analog", "analog_matmul"), ("sc", "sc_matmul_packed[quantized]"),
+                 ("approx_mult", "elementwise_matmul[approx_mult,quantized]"),
+                 ("log_mult", "elementwise_matmul[log_mult,quantized]")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("be,kernel", TRAIN_KERNELS, ids=[b for b, _ in TRAIN_KERNELS])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_model_mode_autograd_on_the_kernels(cuda, be, kernel, dtype):
+    """MODEL mode's autograd.Function on the card: its forward launches the
+    backend's kernel and is bitwise the plain version's on the CPU (same
+    operands, same key path); its backward launches none of the port's
+    kernels and is the proxy's VJP, as on the CPU (float32 within 1e-4,
+    bf16 within 2e-2 of each gradient's largest element: the GEMMs sum in
+    another order)."""
+    import functools
+
+    from repro_torch.configs.base import AnalogParams, ApproxConfig, Backend, TrainMode
+    from repro_torch.core import injection, registry
+    from repro_torch.kernels import ops
+
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn((2, 40, 256), generator=g).to(dtype)
+    w = (torch.randn((256, 384), generator=g) * 256 ** -0.5).to(dtype)
+    gy = torch.randn((2, 40, 384), generator=g).to(dtype)
+    cfg = ApproxConfig(backend=Backend(be), mode=TrainMode.MODEL,
+                       analog=AnalogParams(array_size=16, adc_bits=4))
+    rng = functools.partial(ops.sc_draws, (5,))
+    xd = x.to(cuda).requires_grad_(True)
+    wd = w.to(cuda).requires_grad_(True)
+    before = dict(build.LAUNCHES)
+    y = injection.model_mode_matmul(xd, wd, cfg, rng)
+    assert build.LAUNCHES[kernel] > before[kernel]
+    mid = dict(build.LAUNCHES)
+    dx, dw = torch.autograd.grad(y, (xd, wd), gy.to(cuda))
+    assert build.LAUNCHES == mid
+    spec = registry.get(be)
+    p = cfg.params_for(Backend(be))
+    assert torch.equal(y.detach().cpu(), spec.emulate(x, w, p, rng))
+    xc, wc = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    want = torch.autograd.grad(spec.proxy_forward(xc, wc, p), (xc, wc), gy)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, ref_ in zip((dx, dw), want):
+        assert got.dtype == dtype
+        scale = float(ref_.float().abs().max())
+        assert float((got.cpu().float() - ref_.float()).abs().max()) <= tol * scale

@@ -198,19 +198,23 @@ def test_site_backends_route_per_site():
 
 
 def test_unported_parts_raise():
-    """Archs and training modes the port does not serve yet raise (every
-    backend is ported: sc and analog since the second slice)."""
+    """Archs and training options the port does not run yet raise (every
+    backend is ported: sc and analog since the second slice; every train
+    mode since the training slice)."""
     from repro_torch.configs import get_config
-    from repro_torch.core import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import injection, registry
 
     with pytest.raises(NotImplementedError):
         get_config("yi-6b")
     assert set(registry.names()) == {b.value for b in TBackend}
-    x, w = torch.ones((2, 8)), torch.ones((8, 4))
-    for mode in (TMode.INJECT, TMode.PROXY_ONLY):
-        ctx = TCtx(cfg=TApprox(backend=TBackend.SC, mode=mode))
+    for kw in ({"remat": "block"}, {"optim_compress": "bf16"}):
         with pytest.raises(NotImplementedError):
-            t_dense(x, w, site="mlp_up", ctx=ctx)
+            TrainConfig(**kw)
+    x, w = torch.ones((2, 8)), torch.ones((8, 4))
+    cfg = TApprox(backend=TBackend.SC, mode=TMode.MODEL)
+    with pytest.raises(NotImplementedError):
+        injection.calibrate_matmul(x, w, cfg, None, exact_ref=True)
 
 
 def test_serve_cli_smoke(tmp_path):
