@@ -65,7 +65,27 @@ checkout of the repository.  Phases, each synchronised before the next:
    calibration, where an ADC level at a decision boundary may flip end to
    end, ROADMAP section C: printed), every emulated projection of the
    calibration and MODEL steps bitwise the plain version's on the same
-   operands.
+   operands.  These phases run with ``remat="none"``, as before the
+   default became ``"block"``, so their figures stay comparable.
+6. The phase-plan Trainer (``repro_torch.runtime.trainer``) on the engine
+   phase's weights, the old states freed first: qwen2.5-3b at full width
+   with its first 6 layers (the run saves two checkpoint generations, and
+   the card's host takes at most 45 GiB of disk writes a run; a
+   generation of the 36-layer state is 47.6 GB, of 6 layers 15.2 GB; the
+   phase checks the disk first and fails if two do not fit), analog (arrays of 16, a 4-bit ADC), batch 4 x 64 tokens,
+   ``paper_schedule(10)`` (exact 1, INJECT 7 with adaptive calibration,
+   MODEL 2), ``remat="block"``, a checkpoint every 5 steps keeping one,
+   and a fault injected once at step 7.  One ``[trainer]`` line a step
+   (phase, mode, loss, wall ms, whether a calibration ran, launches),
+   each save's and the restore's bytes and seconds, then a summary: peak
+   memory of the run and of one MODEL step under ``"block"`` and under
+   ``"none"`` (beside phase 5's 36-layer peak under ``"none"``), and K6's
+   launches in each.  It asserts one restart; the restore from step 5;
+   the replayed steps 5 and 6 with their first losses and calibration
+   decisions, bitwise; every loss finite; steps by mode the plan's (and
+   the replays'); K6 in every MODEL, calibration and eval step and none in
+   an INJECT step, which launches the normal entry.  It removes its
+   checkpoint directory (under the gitignored ``build/``) at the end.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.
@@ -854,7 +874,7 @@ def phase_train(dev, cfg, params, card: str):
 
     model = build_model(cfg)
     approx = _train_approx("analog", TrainMode.INJECT)
-    tcfg = TrainConfig(total_steps=48, warmup_steps=2, learning_rate=2e-3)
+    tcfg = TrainConfig(total_steps=48, warmup_steps=2, learning_rate=2e-3, remat="none")
     data = SyntheticLM(cfg.vocab_size, seq_len=TRAIN_T, global_batch=TRAIN_B, seed=0)
     gc.collect()  # the engine phase's cycles (its KV cache) go before the peak is taken
     torch.cuda.empty_cache()
@@ -915,7 +935,7 @@ def phase_train(dev, cfg, params, card: str):
     print(f"[train] summary {json.dumps(summary)}", flush=True)
     del state, box
     torch.cuda.empty_cache()
-    return total
+    return total, peak
 
 
 def phase_train_backends(dev, cfg, params):
@@ -933,7 +953,7 @@ def phase_train_backends(dev, cfg, params):
                           params.lm_head)
     model = build_model(cfg2)
     data = SyntheticLM(cfg.vocab_size, seq_len=TRAIN_T, global_batch=TRAIN_B, seed=1)
-    tcfg = TrainConfig(total_steps=10, warmup_steps=2, learning_rate=2e-3)
+    tcfg = TrainConfig(total_steps=10, warmup_steps=2, learning_rate=2e-3, remat="none")
     want = {"sc": "sc_matmul_packed[quantized]",
             "approx_mult": "elementwise_matmul[approx_mult,quantized]",
             "log_mult": "elementwise_matmul[log_mult,quantized]"}
@@ -957,6 +977,221 @@ def phase_train_backends(dev, cfg, params):
         del state, step
         torch.cuda.empty_cache()
     return total
+
+
+# the depth of phase_trainer's model.  The run saves two generations of
+# its train state, and the card's host takes at most WRITE_BUDGET bytes of
+# disk writes in one run (deleted files count too): at 6 layers a
+# generation is 15.2 GB; at 36 it would be 47.6 GB
+TRAINER_LAYERS = 6
+WRITE_BUDGET = 45 * 2**30
+TRAINER_FAULT_STEP = 7
+
+
+def _step_recorder(trainer, log):
+    """Wrap every step the trainer's cache builds: each call appends its
+    kind, mode, wall ms and the port's kernel launches to ``log``."""
+    from repro_torch.kernels import build
+
+    get = trainer.steps.get
+
+    def recording_get(key, build_fn):
+        fn = get(key, build_fn)
+
+        def recorded(*args):
+            torch.cuda.synchronize()
+            before = dict(build.LAUNCHES)
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            log.append({"kind": key[0], "mode": key[1].mode.value,
+                        "ms": (time.perf_counter() - t0) * 1e3,
+                        "launches": {k: v - before[k] for k, v in build.LAUNCHES.items()
+                                     if v != before[k]}})
+            return out
+
+        return recorded
+
+    trainer.steps.get = recording_get
+
+
+def phase_trainer(dev, cfg, params, card: str, train_peak_gib: float):
+    """The phase-plan Trainer at full width (see the module docstring,
+    phase 6).  Returns the launches of the port's kernels in its run."""
+    import shutil
+
+    from repro_torch.configs.base import TrainConfig, TrainMode
+    from repro_torch.convert import train_state_layout
+    from repro_torch.core.schedule import paper_schedule
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.runtime.trainer import Trainer
+    from repro_torch.training import steps as step_lib
+
+    cfg_l = dataclasses.replace(cfg, n_layers=TRAINER_LAYERS)
+    params_l = Transformer(params.embed, params.final_norm,
+                           list(params.layers[:TRAINER_LAYERS]), params.lm_head)
+    model = build_model(cfg_l)
+    approx = _train_approx("analog", TrainMode.INJECT)
+    tcfg = TrainConfig(total_steps=10, warmup_steps=2, learning_rate=2e-3,
+                       phases=paper_schedule(10), remat="block", checkpoint_every=5,
+                       keep_checkpoints=1)
+    data = SyntheticLM(cfg.vocab_size, seq_len=TRAIN_T, global_batch=TRAIN_B, seed=0)
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "trainer_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = step_lib.init_train_state(model, 0, approx, tcfg, device=dev, params=params_l)
+    generation = sum(int(np.prod(leaf.shape)) * torch.empty((), dtype=leaf.dtype).element_size()
+                     for leaf in _layout_leaves(train_state_layout(state)))
+    free = shutil.disk_usage(ckpt_dir).free
+    print(f"[trainer] qwen2.5-3b full width, {TRAINER_LAYERS} layers: a generation "
+          f"{generation} bytes, {free} free on the disk", flush=True)
+    if 2 * generation > min(free, WRITE_BUDGET * 2 // 3):
+        raise AssertionError(f"[trainer] the disk cannot take two checkpoint generations "
+                             f"({2 * generation} bytes) in {ckpt_dir}: {free} free, "
+                             f"{WRITE_BUDGET} bytes of writes a run")
+
+    def fault(step):
+        if step == TRAINER_FAULT_STEP and not faults:
+            faults.append(step)
+            raise RuntimeError(f"injected fault at step {step}")
+
+    faults, log = [], []
+    trainer = Trainer(model, approx, tcfg, data, str(ckpt_dir), seed=0, fault_hook=fault,
+                      state=state)
+    _step_recorder(trainer, log)
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        report = trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        peak_run = torch.cuda.max_memory_allocated(dev) / 2**30
+        events = list(trainer.ckpt.events)
+        plan = trainer.plan
+        # one attempt a row: its calibration (if any) and its train step
+        rows, calls = [], iter(log)
+        for i, (s, loss, dt, cal) in enumerate(zip(report.steps, report.losses,
+                                                   report.step_times, report.calibrated)):
+            _, phase, _ = plan.phase_at(s)
+            cal_call = next(calls) if cal else None
+            call = next(calls)
+            rows.append({"step": s, "phase": phase.name, "mode": phase.mode.value, "loss": loss,
+                         "wall_ms": dt * 1e3, "calibrated": cal,
+                         "calib_launches": cal_call["launches"] if cal_call else None,
+                         "launches": call["launches"]})
+            print(f"[trainer] {json.dumps(rows[-1])}", flush=True)
+        for e in events:
+            print(f"[trainer] checkpoint {json.dumps(e)}", flush=True)
+        # the emulated steps launch K6; INJECT launches the normal entry, not K6
+        for r in rows:
+            k6, normal = (r["launches"].get("analog_matmul", 0),
+                          r["launches"].get("normal_draws", 0))
+            if r["mode"] == "inject" and (k6 or not normal):
+                raise AssertionError(f"[trainer] INJECT step {r['step']}: K6 {k6}, normal "
+                                     f"{normal}")
+            if r["mode"] == "model" and (not k6 or normal):
+                raise AssertionError(f"[trainer] MODEL step {r['step']}: K6 {k6}, normal {normal}")
+            if r["calibrated"] and not r["calib_launches"].get("analog_matmul", 0):
+                raise AssertionError(f"[trainer] calibration at step {r['step']} without K6")
+        if report.restarts != len(faults) or report.restarts != 1:
+            raise AssertionError(f"[trainer] {report.restarts} restarts for {len(faults)} faults")
+        if not all(np.isfinite(report.losses)):
+            raise AssertionError(f"[trainer] losses {report.losses}")
+        # the plan's steps by mode, and the replayed steps' modes again
+        want_modes = {}
+        for s in report.steps:
+            want_modes[plan.mode_at(s).value] = want_modes.get(plan.mode_at(s).value, 0) + 1
+        if report.mode_steps != want_modes or sorted(set(report.steps)) != list(range(10)):
+            raise AssertionError(f"[trainer] mode steps {report.mode_steps} for steps "
+                                 f"{report.steps} of the plan's {plan.mode_counts()}")
+        if not any(r["calibrated"] for r in rows):
+            raise AssertionError("[trainer] no calibration ran")
+        restored = [e["step"] for e in events if e["op"] == "restore"]
+        if restored != [5]:
+            raise AssertionError(f"[trainer] restored {restored}, not step 5")
+        # the replayed steps repeat the first pass: losses and calibrations, bitwise
+        first = {}
+        for r in rows:
+            key = (r["step"], r["loss"], r["calibrated"])
+            if r["step"] in first and first[r["step"]] != key:
+                raise AssertionError(f"[trainer] replayed step {r['step']}: {key} != "
+                                     f"{first[r['step']]}")
+            first.setdefault(r["step"], key)
+        replayed = sorted({s for s in report.steps if report.steps.count(s) > 1})
+        if replayed != [5, 6]:
+            raise AssertionError(f"[trainer] replayed {replayed}, not steps 5 and 6")
+        cals = {}
+        for s, loss in report.calib_losses:
+            if cals.setdefault(s, loss) != loss:
+                raise AssertionError(f"[trainer] calibration at step {s}: {loss} != {cals[s]}")
+
+        # device time by phase: each kind of step once more after the run
+        # (a profiler trace after a warm-up call), the train steps under
+        # each remat policy with their peak memory and launches
+        kinds = [("calibration", None, lambda b, k: trainer.steps.calibration()(
+            trainer._state, b, k)), ("eval", None, lambda b, k: trainer.steps.eval()(
+                trainer._state, b, k))]
+        for mode in (TrainMode.NO_MODEL, TrainMode.INJECT, TrainMode.MODEL):
+            for policy in ("block", "none") + (("full",) if mode != TrainMode.NO_MODEL else ()):
+                fn = step_lib.make_train_step(model, approx, dataclasses.replace(
+                    tcfg, remat=policy), mode)
+                kinds.append((mode.value, policy, lambda b, k, fn=fn: fn(trainer._state, b, k)))
+        by_kind = []
+        for i, (kind, policy, fn) in enumerate(kinds):
+            batch, key = data.batch_at(10 + i), (17, 10 + i)
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats(dev)
+            out, step_wall, step_launches = _timed(lambda: fn(batch, key))
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            dev_ms, by_group = _traced_ms(lambda: fn(batch, key))
+            k6, normal = (step_launches.get("analog_matmul", 0),
+                          step_launches.get("normal_draws", 0))
+            if ((kind in ("inject", "no_model") and k6) or (kind == "inject" and not normal)
+                    or (kind not in ("inject", "no_model") and not k6)):
+                raise AssertionError(f"[trainer] {kind} step: launches {step_launches}")
+            row = {"kind": kind, "remat": policy, "wall_ms": step_wall, "device_ms": dev_ms,
+                   "busy": dev_ms / step_wall, "peak_gib": peak, "launches": step_launches,
+                   "by_group_ms": by_group}
+            by_kind.append(row)
+            print(f"[trainer] step-kind {json.dumps(row)}", flush=True)
+        remat = {r["kind"] + "/" + r["remat"]: {"k6_launches": r["launches"].get(
+            "analog_matmul", 0), "normal_launches": r["launches"].get("normal_draws", 0),
+            "peak_gib": r["peak_gib"], "wall_ms": r["wall_ms"], "device_ms": r["device_ms"]}
+            for r in by_kind if r["remat"]}
+        summary = {
+            "arch": cfg.name, "layers": TRAINER_LAYERS, "batch": [TRAIN_B, TRAIN_T],
+            "backend": "analog(array 16, adc 4 bits)", "plan": plan.describe(),
+            "remat": tcfg.remat, "restarts": report.restarts, "calibrations": report.calibrations,
+            "mode_steps": report.mode_steps, "phase_steps": report.phase_steps,
+            "compile_stats": report.compile_stats, "replayed": replayed,
+            "run_wall_s": wall, "peak_gib_run": peak_run,
+            "steps_by_remat": remat, "phase_train_peak_gib_none_36_layers": train_peak_gib,
+            "saves": [e for e in events if e["op"] == "save"],
+            "restore": [e for e in events if e["op"] == "restore"], "card": card,
+        }
+        print(f"[trainer] summary {json.dumps(summary)}", flush=True)
+    finally:
+        trainer.ckpt.wait()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del state, trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _layout_leaves(tree):
+    """The tensors and Stacked leaves of a train state's layout."""
+    from repro_torch.convert import Stacked
+
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _layout_leaves(tree[k])]
+    return [tree] if isinstance(tree, (torch.Tensor, Stacked)) else []
 
 
 def _hold_weights(name, got, want, lr, steps):
@@ -988,7 +1223,7 @@ def phase_train_reference(dev):
     cfg = get_smoke_config("qwen2.5-3b")
     model = build_model(cfg)
     data = SyntheticLM(cfg.vocab_size, seq_len=16, global_batch=4, seed=2)
-    tcfg = TrainConfig(total_steps=10, warmup_steps=2, learning_rate=2e-3)
+    tcfg = TrainConfig(total_steps=10, warmup_steps=2, learning_rate=2e-3, remat="none")
     for be in ("analog", "sc"):
         approx = _train_approx(be, TrainMode.INJECT)
         cpu = step_lib.init_train_state(model, 0, approx, tcfg, device="cpu")
@@ -1068,14 +1303,16 @@ def main() -> int:
     launches, params = phase_engine(dev, cfg, card)
     torch.cuda.synchronize()
     summary.update(phase_normal(dev))
-    train_launches = phase_train(dev, cfg, params, card)
+    train_launches, train_peak = phase_train(dev, cfg, params, card)
     for k, v in phase_train_backends(dev, cfg, params).items():
         train_launches[k] = train_launches.get(k, 0) + v
+    trainer_launches = phase_trainer(dev, cfg, params, card, train_peak)
     del params
     torch.cuda.empty_cache()
     phase_train_reference(dev)
     torch.cuda.synchronize()
     print(f"[train] launches {json.dumps(train_launches)}", flush=True)
+    print(f"[trainer] launches {json.dumps(trainer_launches)}", flush=True)
 
     kernels = []
     for name in PATH_KERNELS + tuple(TRAIN_KERNELS):
@@ -1086,9 +1323,11 @@ def main() -> int:
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": os.path.normpath(f"src/repro/kernels/{replaces}"),
-            "launches": launches.get(name, 0) + train_launches.get(name, 0),
+            "launches": (launches.get(name, 0) + train_launches.get(name, 0)
+                         + trainer_launches.get(name, 0)),
             "engine_launches": launches.get(name, 0),
             "train_launches": train_launches.get(name, 0),
+            "trainer_launches": trainer_launches.get(name, 0),
             "shape": row["shape"],
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
@@ -1099,6 +1338,10 @@ def main() -> int:
             "library_ms": row["library_ms"],
             **{k: row[k] for k in ("bound_terms_ms", "alu_bound_ms") if k in row},
         })
+    # the port's path imports none of jax, the JAX package or ml_dtypes
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro", "ml_dtypes"))
+    if foreign:
+        raise AssertionError(f"modules imported that the port must not need: {foreign[:5]}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,11 @@ the serving and training slices need).
 * :class:`ApproxConfig` — which approximate-hardware backend a model is
   served or trained for, with each backend's hardware parameters, the
   mode (MODEL, INJECT, PROXY_ONLY or none) and the calibration knobs.
-* :class:`TrainConfig`  — the optimizer's schedule and the memory policy
-  the training steps read.
+* :class:`Phase` and :class:`CalibPolicy` — one segment of a declarative
+  training schedule and its calibration policy; :func:`parse_phase_specs`
+  and :func:`parse_site_backends` read them from the command line.
+* :class:`TrainConfig`  — the optimizer's schedule, the memory policy,
+  checkpointing and the phase schedule the Trainer reads.
 """
 from __future__ import annotations
 
@@ -73,6 +76,220 @@ class TrainMode(str, enum.Enum):
     MODEL = "model"
     PROXY_ONLY = "proxy_only"
     INJECT = "inject"
+
+
+# ---------------------------------------------------------------------------
+# Declarative phase schedule (paper Sec. 3.2 / 3.3).
+#
+# The paper's 18x training-cost lever is *scheduling*: most steps run in
+# cheap modes (proxy / injection), a small well-placed fraction in the
+# expensive bit-accurate MODEL emulation and calibration.  A schedule is a
+# tuple of Phase specs on TrainConfig; the resolver / calibration policy
+# machinery lives in repro_torch.core.schedule.
+# ---------------------------------------------------------------------------
+
+
+class CalibPolicy(str, enum.Enum):
+    """When calibration batches run within a phase.
+
+    EVERY_N  — fixed cadence (phase's ``calibrate_every`` or the config's).
+    ADAPTIVE — drift-triggered: the interval halves when consecutive
+               calibration losses move more than ``drift_threshold``
+               (relative), and doubles (up to ``max_calibrate_every``)
+               while they hold steady — spending calibration budget only
+               where the error statistics are actually drifting.
+    OFF      — no calibration in this phase.
+    """
+
+    OFF = "off"
+    EVERY_N = "every_n"
+    ADAPTIVE = "adaptive"
+
+
+# CLI / spec-string aliases for phase modes ("exact:100" reads better than
+# "no_model:100"; "finetune" is the paper's name for the MODEL tail).
+PHASE_MODE_ALIASES = {
+    "exact": TrainMode.NO_MODEL,
+    "no_model": TrainMode.NO_MODEL,
+    "proxy": TrainMode.PROXY_ONLY,
+    "proxy_only": TrainMode.PROXY_ONLY,
+    "inject": TrainMode.INJECT,
+    "model": TrainMode.MODEL,
+    "finetune": TrainMode.MODEL,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Phase:
+    """One segment of a multi-phase training schedule.
+
+    Frozen/hashable: phases participate in the step cache's key, so two
+    phases that share (mode, lr_scale, microbatches) reuse one built step
+    function regardless of step budgets or calibration policy.
+
+    ``fleet > 0`` and ``backward != "exact"`` are kept constructible, so
+    that a plan's ``describe()`` and the cache key read as the
+    reference's; the port's :class:`~repro_torch.runtime.trainer.Trainer`
+    refuses such phases until chip fleets (ROADMAP A3) and the gated
+    approximate backward (A6) are ported.
+    """
+
+    mode: TrainMode
+    steps: int
+    calibrate: CalibPolicy = CalibPolicy.OFF
+    calibrate_every: int = 0       # 0 => ApproxConfig.calibrate_every
+    drift_threshold: float = 0.02  # ADAPTIVE: relative calib-loss delta
+    max_calibrate_every: int = 0   # ADAPTIVE back-off cap; 0 => 8x base
+    lr_scale: float = 1.0          # per-phase LR multiplier
+    microbatches: int = 0          # 0 => TrainConfig.microbatches
+    fleet: int = 0                 # variation-aware: round-robin a chip
+                                   # per step over a fleet of this many
+                                   # sampled device instances (ROADMAP A3);
+                                   # 0 => nominal hardware
+    backward: str = "exact"        # "exact" | "approx" | "auto": gated
+                                   # int8 backward (ROADMAP A6);
+                                   # "auto" re-derives the sensitivity
+                                   # gate every `gate_every` steps
+    gate_frac: float = 0.75        # fraction of sites gated approximate
+                                   # (the rest — the most sensitive —
+                                   # keep exact backward)
+    gate_every: int = 25           # "auto": gate refresh cadence (steps)
+    name: str = ""                 # label for logs / reports
+
+    def __post_init__(self):
+        if not isinstance(self.mode, TrainMode):
+            mode = PHASE_MODE_ALIASES.get(str(self.mode))
+            if mode is None:
+                mode = TrainMode(self.mode)  # raises with the enum's message
+            object.__setattr__(self, "mode", mode)
+        if not isinstance(self.calibrate, CalibPolicy):
+            object.__setattr__(self, "calibrate", CalibPolicy(self.calibrate))
+        if self.steps < 1:
+            raise ValueError(f"Phase.steps must be >= 1; got {self.steps}")
+        if self.lr_scale <= 0:
+            raise ValueError(f"Phase.lr_scale must be > 0; got {self.lr_scale}")
+        if self.calibrate_every < 0 or self.microbatches < 0 or self.fleet < 0:
+            raise ValueError(
+                "Phase.calibrate_every / microbatches / fleet must be >= 0"
+            )
+        if self.backward not in ("exact", "approx", "auto"):
+            raise ValueError(
+                "Phase.backward must be 'exact', 'approx' or 'auto'; "
+                f"got {self.backward!r}"
+            )
+        if not 0.0 <= self.gate_frac <= 1.0:
+            raise ValueError(
+                f"Phase.gate_frac must be in [0, 1]; got {self.gate_frac}"
+            )
+        if self.gate_every < 1:
+            raise ValueError(
+                f"Phase.gate_every must be >= 1; got {self.gate_every}"
+            )
+        if not self.name:
+            object.__setattr__(self, "name", self.mode.value)
+
+    # -- convenience constructors (the spec DSL's readable form) ---------
+    @classmethod
+    def exact(cls, steps: int, **kw) -> "Phase":
+        return cls(TrainMode.NO_MODEL, steps, **kw)
+
+    @classmethod
+    def proxy(cls, steps: int, **kw) -> "Phase":
+        return cls(TrainMode.PROXY_ONLY, steps, **kw)
+
+    @classmethod
+    def inject(cls, steps: int, calibrate="every_n", **kw) -> "Phase":
+        return cls(TrainMode.INJECT, steps, calibrate=calibrate, **kw)
+
+    @classmethod
+    def model(cls, steps: int, **kw) -> "Phase":
+        return cls(TrainMode.MODEL, steps, **kw)
+
+
+def parse_phase_specs(entries) -> Tuple[Phase, ...]:
+    """Parse CLI ``MODE:STEPS[:key=val,...]`` strings into a phases tuple.
+
+    Modes accept the aliases in :data:`PHASE_MODE_ALIASES` (``exact``,
+    ``proxy``, ``inject``, ``model``/``finetune``).  Keys: ``calib``
+    (off | every_n | adaptive | an integer, which means every_n at that
+    cadence), ``every``, ``drift``, ``lr``, ``micro``, ``fleet``
+    (variation-aware training over N sampled chips), ``backward`` (or
+    ``bwd``: exact | approx | auto — gated int8 backward), ``gate``
+    (fraction of sites gated approximate), ``gate_every`` (auto-refresh
+    cadence), ``name``.
+
+    Example — the paper recipe with adaptive calibration::
+
+        --phase exact:20 --phase inject:60:calib=adaptive,drift=0.05 \\
+        --phase model:20:lr=0.5
+    """
+    phases = []
+    for entry in entries or ():
+        head, _, opts = str(entry).partition(":")
+        steps_str, _, kv = opts.partition(":")
+        if not head or not steps_str:
+            raise ValueError(
+                f"--phase expects MODE:STEPS[:key=val,...] "
+                f"(e.g. 'inject:80:calib=adaptive'); got {entry!r}"
+            )
+        try:
+            steps = int(steps_str)
+        except ValueError:
+            raise ValueError(
+                f"--phase {entry!r}: STEPS must be an integer; got {steps_str!r}"
+            ) from None
+        kwargs = {}
+        for pair in filter(None, kv.split(",")):
+            key, sep, val = pair.partition("=")
+            if not sep or not key or not val:
+                raise ValueError(
+                    f"--phase {entry!r}: options must be key=val; got {pair!r}"
+                )
+            if key == "calib":
+                if val.isdigit():
+                    kwargs["calibrate"] = CalibPolicy.EVERY_N
+                    kwargs["calibrate_every"] = int(val)
+                else:
+                    try:
+                        kwargs["calibrate"] = CalibPolicy(val)
+                    except ValueError:
+                        raise ValueError(
+                            f"--phase {entry!r}: calib must be one of "
+                            f"{[p.value for p in CalibPolicy]} or an integer "
+                            f"cadence; got {val!r}"
+                        ) from None
+            elif key == "every":
+                kwargs["calibrate_every"] = int(val)
+                kwargs.setdefault("calibrate", CalibPolicy.EVERY_N)
+            elif key == "drift":
+                kwargs["drift_threshold"] = float(val)
+                kwargs.setdefault("calibrate", CalibPolicy.ADAPTIVE)
+            elif key == "lr":
+                kwargs["lr_scale"] = float(val)
+            elif key == "micro":
+                kwargs["microbatches"] = int(val)
+            elif key == "fleet":
+                kwargs["fleet"] = int(val)
+            elif key in ("backward", "bwd"):
+                kwargs["backward"] = val
+            elif key == "gate":
+                kwargs["gate_frac"] = float(val)
+            elif key == "gate_every":
+                kwargs["gate_every"] = int(val)
+            elif key == "name":
+                kwargs["name"] = val
+            else:
+                raise ValueError(
+                    f"--phase {entry!r}: unknown option {key!r} (expected "
+                    "calib/every/drift/lr/micro/fleet/backward/gate/"
+                    "gate_every/name)"
+                )
+        kwargs.setdefault("name", head)  # keep the user's alias as the label
+        try:
+            phases.append(Phase(head, steps, **kwargs))
+        except ValueError as e:
+            raise ValueError(f"--phase {entry!r}: {e}") from None
+    return tuple(phases)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,6 +403,34 @@ def _match_backend(site_backends: Tuple, site: str):
     return None
 
 
+def parse_site_backends(entries, known_sites=(), warn=None):
+    """Parse CLI ``PATTERN=BACKEND`` strings into a ``site_backends`` tuple.
+
+    Shared by every driver that exposes ``--site-backend``.  Raises
+    ``ValueError`` with a flag-shaped message on malformed entries (no
+    ``=``, empty halves); when ``known_sites`` is given, patterns matching
+    none of them are reported through ``warn`` (likely a typo — the run
+    would silently stay exact at those sites).
+    """
+    out = []
+    for entry in entries or ():
+        pattern, sep, name = str(entry).partition("=")
+        if not sep or not pattern or not name:
+            raise ValueError(
+                f"--site-backend expects PATTERN=BACKEND (e.g. 'attn_*=sc'); "
+                f"got {entry!r}"
+            )
+        if known_sites and warn is not None:
+            if not any(fnmatch.fnmatchcase(s, pattern) for s in known_sites):
+                warn(
+                    f"--site-backend pattern {pattern!r} matches no projection "
+                    f"site (known: {', '.join(known_sites)}); those matmuls "
+                    "will stay on the default backend"
+                )
+        out.append((pattern, name))
+    return tuple(out)
+
+
 class Family(str, enum.Enum):
     DENSE = "dense"
     MOE = "moe"
@@ -225,13 +470,32 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 
 
+def check_remat(remat: str) -> str:
+    """``remat`` if it names a memory policy: ``none``, ``full``, ``block``
+    or ``group:<k>`` (k >= 1); else a ``ValueError``."""
+    head, sep, k = str(remat).partition(":")
+    ok = (not sep and head in ("none", "full", "block")) or (
+        head == "group" and k.isdigit() and int(k) >= 1)
+    if not ok:
+        raise ValueError(
+            f"TrainConfig.remat must be 'none', 'full', 'block' or 'group:<k>'; got {remat!r}"
+        )
+    return remat
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """The fields of the reference's ``TrainConfig`` that the training
-    steps read.  ``remat`` and ``optim_compress`` take only ``"none"``:
-    activation checkpointing and the compressed optimizer state come with
-    later slices, and a config asking for them raises here rather than
-    training without them."""
+    steps and the Trainer read.
+
+    ``remat`` is the activation-checkpointing policy of each layer
+    (:func:`repro_torch.core.checkpoint_policy.wrap_block`): ``none``,
+    ``full`` (recompute the whole layer in the backward), ``block`` (keep
+    the plain matmuls' outputs, recompute the rest) or ``group:<k>``,
+    which the reference's ``wrap_block`` treats exactly as ``block``, and
+    so does the port.  ``optim_compress`` takes only ``"none"``: the
+    compressed optimizer state comes with a later slice, and a config
+    asking for it raises here rather than training without it."""
 
     learning_rate: float = 3e-4
     min_lr_ratio: float = 0.1
@@ -243,16 +507,28 @@ class TrainConfig:
     eps: float = 1e-8
     grad_clip: float = 1.0
 
+    # memory policy ------------------------------------------------------
     microbatches: int = 1            # gradient accumulation factor
-    remat: str = "none"              # the reference also takes block | group:<k>
+    remat: str = "block"             # none | full | block | group:<k>
     optim_compress: str = "none"     # the reference also takes bf16 | sm3
 
+    # fault tolerance ------------------------------------------------------
+    checkpoint_every: int = 200
+    keep_checkpoints: int = 3
+
+    # declarative phase schedule -------------------------------------------
+    # The resolver (repro_torch.core.schedule.PhasePlan) picks, in order:
+    #   1. ``phases`` when non-empty (the general multi-phase pipeline),
+    #   2. the legacy two-phase inject/finetune split below,
+    #   3. a single phase of ``total_steps`` in the config's mode.
+    phases: Tuple[Phase, ...] = ()
+
+    # legacy two-phase split (kept for the classic paper recipe / old CLIs)
+    inject_steps: int = 0            # steps trained with error injection
+    finetune_steps: int = 0          # steps fine-tuned with accurate model
+
     def __post_init__(self):
-        if self.remat != "none":
-            raise NotImplementedError(
-                f"TrainConfig.remat={self.remat!r} is not yet ported to repro_torch "
-                "(only 'none')"
-            )
+        check_remat(self.remat)
         if self.optim_compress != "none":
             raise NotImplementedError(
                 f"TrainConfig.optim_compress={self.optim_compress!r} is not yet ported to "
@@ -260,3 +536,14 @@ class TrainConfig:
             )
         if self.microbatches < 1:
             raise ValueError(f"TrainConfig.microbatches must be >= 1; got {self.microbatches}")
+        for i, p in enumerate(self.phases):
+            if not isinstance(p, Phase):
+                raise TypeError(
+                    f"TrainConfig.phases[{i}] must be a Phase; got "
+                    f"{type(p).__name__} (use parse_phase_specs for strings)"
+                )
+        if self.phases and (self.inject_steps or self.finetune_steps):
+            raise ValueError(
+                "TrainConfig: give either `phases` or the legacy "
+                "inject_steps/finetune_steps split, not both"
+            )

@@ -12,6 +12,12 @@ calibration tree and the step.  ``train_state_to_numpy(state)`` goes the
 other way, into the reference's layout.  Only numpy is read; bfloat16
 arrays (numpy's ``ml_dtypes`` extension type) are reinterpreted bit for
 bit.
+
+``train_state_layout(state)`` is the reference's layout without copies:
+the same nested dicts, whose leaves are the port's own tensors, with a
+:class:`Stacked` where the reference stacks one tensor per layer.  The
+checkpoint manager (:mod:`repro_torch.ckpt.manager`) writes and restores
+a train state through it, on the host with torch alone.
 """
 from __future__ import annotations
 
@@ -42,6 +48,69 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
         return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
     return t.numpy()
+
+
+class Stacked:
+    """One tensor per layer that the reference's layout stacks into one
+    ``[L, ...]`` leaf."""
+
+    def __init__(self, tensors):
+        self.tensors = list(tensors)
+        first = self.tensors[0]
+        self.shape = (len(self.tensors),) + tuple(first.shape)
+        self.dtype = first.dtype
+
+    def host(self) -> torch.Tensor:
+        """The stacked leaf in host memory: each layer copied into its slice."""
+        out = torch.empty(self.shape, dtype=self.dtype)
+        for l, t in enumerate(self.tensors):
+            out[l].copy_(t.detach())
+        return out
+
+    @torch.no_grad()
+    def load_(self, stacked: torch.Tensor) -> None:
+        """Copy slice ``l`` of ``stacked`` into layer ``l``'s tensor, in place."""
+        for l, t in enumerate(self.tensors):
+            t.copy_(stacked[l])
+
+
+def named_layout(named: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """``{port parameter name: tensor}`` in the reference's parameter
+    layout, its layer leaves :class:`Stacked` (no copies)."""
+    n_layers = 1 + max(int(k.split(".")[1]) for k in named if k.startswith("layers."))
+
+    def stacked(suffix):
+        return Stacked(named[f"layers.{l}.{suffix}"] for l in range(n_layers))
+
+    parts = {"attn": {}, "mlp": {}}
+    for k in named:
+        if k.startswith("layers.0."):
+            _, _, part, *leaf = k.split(".")
+            if leaf:
+                parts[part][leaf[0]] = stacked(f"{part}.{leaf[0]}")
+    tree = {
+        "embed": {"tok": named["embed"]},
+        "final_norm": named["final_norm"],
+        "layers": {"ln1": stacked("ln1"), "ln2": stacked("ln2"), **parts},
+    }
+    if "lm_head" in named:
+        tree["head"] = {"lm_head": named["lm_head"]}
+    return tree
+
+
+def train_state_layout(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's train state in the reference's layout, without copies:
+    its tensors (layer leaves :class:`Stacked`) and, for the step, an
+    int32 numpy scalar.  A float32 parameter is its own master, so both
+    leaves hold the one tensor."""
+    opt = state["opt"]
+    return {
+        "params": named_layout(dict(state["params"].named_parameters())),
+        "opt": {"m": named_layout(opt["m"]), "v": named_layout(opt["v"]),
+                "master": named_layout(opt["master"]), "count": opt["count"]},
+        "calib": state["calib"],
+        "step": np.asarray(state["step"], np.int32),
+    }
 
 
 def params_from_jax(tree: Dict[str, Any], device="cuda") -> Transformer:
@@ -84,25 +153,7 @@ def named_from_jax(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
 def named_to_jax(named: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """``{port parameter name: tensor}`` as numpy in the reference's
     parameter layout, layer leaves stacked."""
-    n_layers = 1 + max(int(k.split(".")[1]) for k in named if k.startswith("layers."))
-
-    def stacked(suffix):
-        return np.stack([_numpy(named[f"layers.{l}.{suffix}"]) for l in range(n_layers)])
-
-    parts = {"attn": {}, "mlp": {}}
-    for k in named:
-        if k.startswith("layers.0."):
-            _, _, part, *leaf = k.split(".")
-            if leaf:
-                parts[part][leaf[0]] = stacked(f"{part}.{leaf[0]}")
-    tree = {
-        "embed": {"tok": _numpy(named["embed"])},
-        "final_norm": _numpy(named["final_norm"]),
-        "layers": {"ln1": stacked("ln1"), "ln2": stacked("ln2"), **parts},
-    }
-    if "lm_head" in named:
-        tree["head"] = {"lm_head": _numpy(named["lm_head"])}
-    return tree
+    return _tree_to(named_layout(named))
 
 
 def _tree_from(tree, device):
@@ -114,7 +165,9 @@ def _tree_from(tree, device):
 def _tree_to(tree):
     if isinstance(tree, dict):
         return {k: _tree_to(v) for k, v in tree.items()}
-    return _numpy(tree)
+    if isinstance(tree, np.ndarray):
+        return tree
+    return _numpy(tree.host() if isinstance(tree, Stacked) else tree)
 
 
 def train_state_from_jax(state: Dict[str, Any], device="cuda") -> Dict[str, Any]:
@@ -142,15 +195,4 @@ def train_state_from_jax(state: Dict[str, Any], device="cuda") -> Dict[str, Any]
 
 def train_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
     """The port's train state as numpy in the reference's layout."""
-    opt = state["opt"]
-    return {
-        "params": named_to_jax(dict(state["params"].named_parameters())),
-        "opt": {
-            "m": named_to_jax(opt["m"]),
-            "v": named_to_jax(opt["v"]),
-            "master": named_to_jax(opt["master"]),
-            "count": np.asarray(int(opt["count"]), np.int32),
-        },
-        "calib": _tree_to(state["calib"]),
-        "step": np.asarray(state["step"], np.int32),
-    }
+    return _tree_to(train_state_layout(state))

@@ -1,0 +1,155 @@
+"""End-to-end training driver (port of ``repro.launch.train``).
+
+Legacy two-phase split, on the CPU at the smoke config:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b --smoke \\
+      --device cpu --backend analog --inject-steps 8 --finetune-steps 2
+
+Declarative multi-phase pipeline (paper recipe with adaptive calibration),
+on the card:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b --smoke \\
+      --backend analog --phase exact:2 \\
+      --phase inject:7:calib=adaptive,drift=0.05 --phase model:2:lr=0.5
+
+``--device`` defaults to ``cuda`` and raises where there is no card.  The
+reference's ``--fleet``, ``--variation-scale``, ``--fleet-seed``,
+``--backward``, ``--gate-frac`` and ``--optim-compress`` wait for chip
+fleets (ROADMAP A3) and the approximate backward and compressed
+optimizer (A6).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs.base import (
+    AnalogParams,
+    ApproxConfig,
+    Backend,
+    TrainConfig,
+    TrainMode,
+    parse_phase_specs,
+    parse_site_backends,
+)
+from repro_torch.data import SyntheticLM
+from repro_torch.models import build_model
+from repro_torch.models.transformer import ALL_SITES
+from repro_torch.runtime.trainer import Trainer
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true", help="reduced config (CPU)")
+    ap.add_argument("--backend", default="exact",
+                    choices=["exact", "sc", "approx_mult", "analog", "log_mult"])
+    ap.add_argument("--site-backend", action="append", default=None,
+                    metavar="PATTERN=BACKEND", dest="site_backend",
+                    help="per-site backend override (repeatable), e.g. "
+                         "--site-backend 'attn_*=sc'")
+    ap.add_argument("--phase", action="append", default=None, dest="phase",
+                    metavar="MODE:STEPS[:key=val,...]",
+                    help="declarative schedule phase (repeatable, ordered); "
+                         "modes: exact|proxy|inject|model; keys: calib "
+                         "(off|every_n|adaptive|N), every, drift, lr, micro "
+                         "— e.g. --phase inject:80:calib=adaptive,drift=0.05. "
+                         "Overrides --inject-steps/--finetune-steps.")
+    ap.add_argument("--inject-steps", type=int, default=80)
+    ap.add_argument("--finetune-steps", type=int, default=20)
+    ap.add_argument("--steps", type=int, default=None, help="total (exact mode)")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--calibrate-every", type=int, default=10)
+    ap.add_argument("--ckpt-dir", default="/tmp/repro_torch_ckpt")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--report", default=None, help="write JSON report here")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    model = build_model(cfg)
+
+    backend = Backend(args.backend)
+    try:
+        site_backends = parse_site_backends(
+            args.site_backend, known_sites=ALL_SITES,
+            warn=lambda m: print(f"[train] warning: {m}"),
+        )
+        # gate on the WHOLE config, not just the default backend: a per-site
+        # override can make an exact-default run approximate (and vice versa
+        # an all-exact override map adds nothing)
+        approx = ApproxConfig(
+            backend=backend,
+            mode=TrainMode.NO_MODEL,
+            calibrate_every=args.calibrate_every,
+            analog=AnalogParams(array_size=min(128, cfg.d_model)),
+            site_backends=site_backends,
+        )
+    except ValueError as e:
+        ap.error(str(e))
+    if approx.approx_backends:
+        approx = dataclasses.replace(approx, mode=TrainMode.INJECT)
+    try:
+        phases = parse_phase_specs(args.phase)
+    except ValueError as e:
+        ap.error(str(e))
+    if phases:
+        if args.steps is not None:
+            ap.error("--steps conflicts with --phase: the total is the sum "
+                     "of the phase budgets")
+        total = sum(p.steps for p in phases)
+        tcfg = TrainConfig(
+            learning_rate=args.lr,
+            total_steps=total,
+            warmup_steps=max(total // 20, 1),
+            phases=phases,
+            checkpoint_every=max(total // 4, 1),
+        )
+    else:
+        total = args.steps or (args.inject_steps + args.finetune_steps)
+        tcfg = TrainConfig(
+            learning_rate=args.lr,
+            total_steps=total,
+            warmup_steps=max(total // 20, 1),
+            inject_steps=args.inject_steps if approx.approx_backends else 0,
+            finetune_steps=args.finetune_steps if approx.approx_backends else 0,
+            checkpoint_every=max(total // 4, 1),
+        )
+    data = SyntheticLM(cfg.vocab_size, args.seq_len, args.batch, seed=args.seed)
+    trainer = Trainer(
+        model, approx, tcfg, data, args.ckpt_dir,
+        seed=args.seed, log_every=args.log_every, device=args.device,
+    )
+    report = trainer.run(total)
+    summary = {
+        "arch": cfg.name,
+        "backend": backend.value,
+        "schedule": trainer.plan.describe(),
+        "steps": len(report.losses),
+        "first_loss": report.losses[0],
+        "final_loss": sum(report.losses[-5:]) / max(len(report.losses[-5:]), 1),
+        "mean_step_s": sum(report.step_times) / max(len(report.step_times), 1),
+        "restarts": report.restarts,
+        "calibrations": report.calibrations,
+        "final_calib_loss": report.calib_losses[-1][1] if report.calib_losses else None,
+        "mode_steps": report.mode_steps,
+        "compile_stats": report.compile_stats,
+        "fleet_steps": report.fleet_steps,
+        "backward_steps": report.backward_steps,
+        "gate_refreshes": report.gate_refreshes,
+        "gate_events": report.gate_events,
+        "optim_compress": tcfg.optim_compress,
+    }
+    print(json.dumps(summary, indent=2))
+    if args.report:
+        os.makedirs(os.path.dirname(args.report) or ".", exist_ok=True)
+        with open(args.report, "w") as f:
+            json.dump(summary, f, indent=2)
+
+
+if __name__ == "__main__":
+    main()

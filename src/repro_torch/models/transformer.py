@@ -1,7 +1,7 @@
 """Decoder-LM assembly, DENSE family (port of ``repro.models.transformer``:
 ``padded_vocab``, ``init_params``, ``init_calibration``,
 ``_attn_block_apply``, ``_embed``, ``_lm_head`` and ``apply_model`` with
-``return_cache``, ``calib`` and ``collect``).
+``return_cache``, ``calib``, ``collect`` and ``remat``).
 
 The parameters are an ``nn.Module`` tree (:class:`Transformer`); a Python
 loop over ``layers`` takes the place of the reference's ``lax.scan``.
@@ -17,6 +17,7 @@ from torch import nn
 
 from repro_torch.configs.base import ApproxConfig, Family, ModelConfig, TrainMode
 from repro_torch.core import calibration as calib_lib
+from repro_torch.core import checkpoint_policy
 from repro_torch.core.approx_linear import ApproxCtx, dense
 from repro_torch.models import layers as L
 
@@ -24,6 +25,10 @@ from repro_torch.models import layers as L
 HEAD_FOLD = 2**20
 ATTN_SITES = ("attn_q", "attn_k", "attn_v", "attn_o")
 MLP_SITES = ("mlp_gate", "mlp_up", "mlp_down")
+# every dense() call-site name across the reference's zoo (its MoE and SSM
+# sites too): the universe that --site-backend patterns are checked against
+ALL_SITES = ATTN_SITES + MLP_SITES + ("moe_gate", "moe_up", "moe_down", "ssm_in", "ssm_out",
+                                      "moe_router", "lm_head")
 
 
 class Block(nn.Module):
@@ -165,6 +170,7 @@ def apply_model(
     draws: Optional[Callable] = None,
     calib: Optional[Dict[str, Any]] = None,
     collect: bool = False,
+    remat: str = "block",
 ) -> ApplyOutput:
     """Full-sequence forward.  batch: {'tokens': [B, T] int}.
 
@@ -180,7 +186,10 @@ def apply_model(
     INJECT mode or a calibration pass reads them) gives each layer's ctx
     its sites; with ``collect`` the forward is a
     calibration pass and the output carries the fitted stats, laid out as
-    ``calib``.
+    ``calib``.  ``remat`` is each layer's activation-checkpointing policy
+    (:func:`repro_torch.core.checkpoint_policy.wrap_block`), as in the
+    reference: ``"block"`` unless the caller says otherwise, and ``"none"``
+    with ``return_cache``.
     """
     check_dense(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
@@ -191,10 +200,11 @@ def apply_model(
         calib = init_calibration(cfg, approx, x.device)
     ctx = ApproxCtx(cfg=approx, rng=tuple(rng) if rng is not None else (0,), draws=draws,
                     collect=collect)
+    block = checkpoint_policy.wrap_block(_attn_block_apply, "none" if return_cache else remat)
     ks, vs, coll = [], [], []
     for l, p in enumerate(params.layers):
         lctx = ctx.for_layer(l, None if calib is None else _layer_calibration(calib, l))
-        x, (k, v) = _attn_block_apply(x, p, cfg, lctx, positions, chunk_q)
+        x, (k, v) = block(x, p, cfg, lctx, positions, chunk_q)
         coll.append(lctx.collected)
         if return_cache:
             ks.append(k)

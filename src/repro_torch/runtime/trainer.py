@@ -1,0 +1,271 @@
+"""Fault-tolerant training loop (port of ``repro.runtime.trainer``).
+
+Beyond calling the step functions:
+
+* **Phase pipeline** (paper Sec. 3.2/3.3): drives the declarative
+  :class:`~repro_torch.core.schedule.PhasePlan`.  Per step it resolves
+  the active :class:`Phase`, pulls the matching step from the
+  :class:`~repro_torch.training.steps.StepCache` (keyed on mode,
+  per-phase LR and microbatches, and the site-backend map, so each
+  distinct step is built once), and lets the
+  :class:`~repro_torch.core.schedule.CalibrationController` decide when
+  a calibration batch runs (fixed cadence or adaptive drift-triggered).
+* **Checkpoint/restart**: a save every ``checkpoint_every`` steps and at
+  the end (copied to the host before the next step, written on a
+  thread).  On a step failure (device loss, preemption; a fault hook in
+  tests) the loop restores the latest generation and replays from
+  there.  Data and key paths are functions of the step, so replayed
+  batches and draws are identical.  The calibration controller's state
+  rides inside every checkpoint, so a restart mid-phase resumes with its
+  cadence and loss history.  The restart budget is windowed: a run of
+  ``restart_reset_steps`` steps of new progress refunds it, so a long
+  job survives many recoverable failures while a persistent one still
+  aborts.
+* **Restore in place**: the state's tensors are overwritten from the
+  checkpoint (:meth:`repro_torch.ckpt.CheckpointManager.restore`), never
+  rebuilt: at full width a second train state would not fit on the card.
+  So the state the steps, the optimizer and the caller hold stays the
+  same tensors, and a float32 parameter stays its own AdamW master.
+* **Straggler watchdog**: per-step wall-time EWMA; steps slower than
+  ``straggler_factor`` x the EWMA of the preceding steps are counted.
+
+The reference builds its initial state from ``PRNGKey(seed)``; the
+port's ``init(seed)`` draws other weights, so a caller that wants a
+given start passes ``state=`` (the reference's, through
+:func:`repro_torch.convert.train_state_from_jax`, or weights already on
+the card), used when the checkpoint directory is empty.  That state is
+trained in place: a fault before the first checkpoint cannot go back to
+it, and is re-raised.  Chip fleets (``Phase.fleet``, ROADMAP A3) and the
+gated approximate backward (``Phase.backward``, A6) are refused.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.ckpt import CheckpointManager
+from repro_torch.configs.base import ApproxConfig, TrainConfig
+from repro_torch.convert import train_state_layout
+from repro_torch.core.schedule import CalibrationController, PhasePlan
+from repro_torch.data import SyntheticLM
+from repro_torch.models.model import Model, resolve_device
+from repro_torch.training.steps import StepCache, init_train_state
+
+
+@dataclasses.dataclass
+class TrainReport:
+    losses: List[float]
+    step_times: List[float]
+    restarts: int
+    straggler_steps: int
+    calibrations: int
+    # --- phase-pipeline accounting -----------------------------------
+    calib_losses: List[Tuple[int, float]] = dataclasses.field(default_factory=list)
+    mode_steps: Dict[str, int] = dataclasses.field(default_factory=dict)
+    phase_steps: Dict[str, int] = dataclasses.field(default_factory=dict)
+    compile_stats: Dict[str, int] = dataclasses.field(default_factory=dict)
+    fleet_steps: int = 0  # no chip fleets in the port yet (ROADMAP A3)
+    # --- approximate-backward accounting (every step exact: A6) --------
+    backward_steps: Dict[str, int] = dataclasses.field(default_factory=dict)
+    gate_refreshes: int = 0
+    gate_events: List[Tuple[int, int]] = dataclasses.field(default_factory=list)
+    # --- the port's: each entry of ``losses``'s global step, and whether
+    # a calibration batch ran before it (replayed steps appear again) ---
+    steps: List[int] = dataclasses.field(default_factory=list)
+    calibrated: List[bool] = dataclasses.field(default_factory=list)
+
+
+class Trainer:
+    def __init__(
+        self,
+        model: Model,
+        approx: ApproxConfig,
+        tcfg: TrainConfig,
+        data: SyntheticLM,
+        ckpt_dir: str,
+        *,
+        seed: int = 0,
+        straggler_factor: float = 3.0,
+        fault_hook: Optional[Callable[[int], None]] = None,
+        log_every: int = 0,
+        restart_budget: int = 10,
+        restart_reset_steps: int = 50,
+        device="cuda",
+        state: Optional[Dict[str, Any]] = None,
+    ):
+        self.model = model
+        self.approx = approx
+        self.tcfg = tcfg
+        self.data = data
+        self.ckpt = CheckpointManager(ckpt_dir, keep=tcfg.keep_checkpoints)
+        self.seed = seed
+        self.straggler_factor = straggler_factor
+        self.fault_hook = fault_hook
+        self.log_every = log_every
+        self.restart_budget = restart_budget
+        self.restart_reset_steps = restart_reset_steps
+        self.device = resolve_device(device) if state is None else None
+
+        self.plan = PhasePlan.from_configs(approx, tcfg)
+        for p in self.plan.phases:
+            if p.fleet:
+                raise NotImplementedError(
+                    f"phase {p.name!r}: chip fleets (Phase.fleet) are not yet ported to "
+                    "repro_torch (ROADMAP A3)")
+            if p.backward != "exact":
+                raise NotImplementedError(
+                    f"phase {p.name!r}: the gated approximate backward (Phase.backward="
+                    f"{p.backward!r}) is not yet ported to repro_torch (ROADMAP A6)")
+        self.controller = CalibrationController(self.plan, approx)
+        self.steps = StepCache(model, approx, tcfg)
+        self._state = state          # the live state: restored in place
+        self._given = state is not None
+        self._trained = False        # whether a step has changed self._state
+
+    # ------------------------------------------------------------------
+    def _state_like(self):
+        if self._state is None:
+            self._state = init_train_state(self.model, self.seed, self.approx, self.tcfg,
+                                           device=self.device)
+        return self._state
+
+    def init_or_restore(self):
+        """The latest checkpoint, restored in place into the live state
+        (which also reloads the calibration controller's state saved
+        beside it); else the initial state."""
+        if self.ckpt.latest_step() is not None:
+            state = self._state_like()
+            layout = train_state_layout(state)
+            if any(p.startswith("['sched']") for p in self.ckpt.paths()):
+                full = self.ckpt.restore(dict(layout, sched=self.controller.to_tree()))
+                self.controller.load_tree(full["sched"])
+            else:
+                # a checkpoint without a sched subtree: restore the train
+                # state, start the controller fresh
+                self.controller = CalibrationController(self.plan, self.approx)
+                full = self.ckpt.restore(layout)
+            state["step"] = int(full["step"])
+            return state
+        # no checkpoint: the controller restarts from scratch too, or a
+        # failure before the first save replays with the aborted
+        # attempt's cadence and skips the phase-entry calibration
+        self.controller = CalibrationController(self.plan, self.approx)
+        if self._trained:
+            if self._given:
+                raise RuntimeError(
+                    "no checkpoint to restore yet, and the initial state given to the "
+                    "Trainer was trained in place")
+            self._state = None  # drawn again from the seed
+            self._trained = False
+        return self._state_like()
+
+    def _save(self, step: int, state):
+        self.ckpt.save(step, dict(train_state_layout(state), sched=self.controller.to_tree()))
+
+    def _step_fn(self, step: int):
+        """The train step and its label for a global step (cache-backed)."""
+        index, phase, _ = self.plan.phase_at(step)
+        fn = self.steps.train(phase.mode, lr_scale=phase.lr_scale,
+                              microbatches=phase.microbatches)
+        label = phase.name if len(self.plan.phases) > 1 else phase.mode.value
+        return fn, label, phase
+
+    # ------------------------------------------------------------------
+    def run(self, total_steps: Optional[int] = None) -> TrainReport:
+        total = total_steps or self.plan.total_steps
+        state = self.init_or_restore()
+        start = int(state["step"])
+        losses: List[float] = []
+        times: List[float] = []
+        steps: List[int] = []
+        calibrated: List[bool] = []
+        calib_losses: List[Tuple[int, float]] = []
+        mode_steps: Dict[str, int] = {}
+        phase_steps: Dict[str, int] = {}
+        backward_steps: Dict[str, int] = {}
+        restarts = 0
+        window_restarts = 0    # failures since the last budget refund
+        success_streak = 0     # counts NEW-progress steps only (see below)
+        best_step = start      # high-water mark of completed steps
+        stragglers = 0
+        calibrations = 0
+        ewma = None
+
+        step = start
+        while step < total:
+            try:
+                if self.fault_hook is not None:
+                    self.fault_hook(step)
+                rng = (self.seed + 17, step)  # fold_in(PRNGKey(seed + 17), step)
+                batch = self.data.batch_at(step)
+                t0 = time.perf_counter()
+                did_calibrate = self.controller.begin_step(step)
+                if did_calibrate:
+                    self._trained = True
+                    state, cmetrics = self.steps.calibration()(state, batch, rng)
+                    self._state = state
+                    closs = float(cmetrics["loss"])
+                    self.controller.record(step, closs)
+                    calib_losses.append((step, closs))
+                    calibrations += 1
+                fn, label, phase = self._step_fn(step)
+                self._trained = True
+                state, metrics = fn(state, batch, rng)
+                self._state = state
+                loss = float(metrics["loss"])
+                dt = time.perf_counter() - t0
+                if not np.isfinite(loss):
+                    raise FloatingPointError(f"non-finite loss at step {step}")
+                losses.append(loss)
+                times.append(dt)
+                steps.append(step)
+                calibrated.append(did_calibrate)
+                # compare against the EWMA of *prior* steps: folding dt in
+                # first inflates the threshold by ~10% and hides stragglers
+                if ewma is not None and dt > self.straggler_factor * ewma and len(times) > 3:
+                    stragglers += 1
+                ewma = dt if ewma is None else 0.9 * ewma + 0.1 * dt
+                mode_steps[phase.mode.value] = mode_steps.get(phase.mode.value, 0) + 1
+                phase_steps[label] = phase_steps.get(label, 0) + 1
+                backward_steps[phase.backward] = backward_steps.get(phase.backward, 0) + 1
+                # only NEW progress counts toward the refund: replayed
+                # steps always succeed (the failure hasn't recurred yet),
+                # so counting them would let a persistent failure sitting
+                # far past the last checkpoint retry forever
+                if step + 1 > best_step:
+                    best_step = step + 1
+                    success_streak += 1
+                if window_restarts and success_streak >= self.restart_reset_steps:
+                    window_restarts = 0  # stable again: refund the budget
+                if self.log_every and step % self.log_every == 0:
+                    print(f"[{label}] step {step} loss {loss:.4f} ({dt*1e3:.0f} ms)")
+                if (step + 1) % self.tcfg.checkpoint_every == 0 or step + 1 == total:
+                    self._save(step + 1, state)
+                step += 1
+            except (FloatingPointError, RuntimeError) as e:  # device loss etc.
+                restarts += 1
+                window_restarts += 1
+                success_streak = 0
+                if window_restarts > self.restart_budget:
+                    raise
+                print(f"[trainer] step {step} failed ({e}); restoring latest checkpoint")
+                state = self.init_or_restore()
+                step = int(state["step"])
+        self.ckpt.wait()
+        return TrainReport(
+            losses,
+            times,
+            restarts,
+            stragglers,
+            calibrations,
+            calib_losses=calib_losses,
+            mode_steps=mode_steps,
+            phase_steps=phase_steps,
+            compile_stats=self.steps.stats(),
+            backward_steps=backward_steps,
+            steps=steps,
+            calibrated=calibrated,
+        )

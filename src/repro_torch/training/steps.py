@@ -1,7 +1,8 @@
-"""Train, calibration and eval steps (port of ``repro.training.steps``:
-``init_train_state``, ``make_train_step``, ``make_calibration_step`` and
-``make_eval_step``; the reference's ``StepCache`` and its chip-, switch-
-and backward-gate-aware variants come with later slices).
+"""Train, calibration and eval steps, and the cache that holds them (port
+of ``repro.training.steps``: ``init_train_state``, ``make_train_step``,
+``make_calibration_step``, ``make_eval_step`` and ``StepCache``; the
+chip-, switch- and backward-gate-aware variants wait for ROADMAP A3, A4
+and A6).
 
 The paper's schedule alternates graphs (INJECT or bit-accurate MODEL
 forward), so each step is built for one mode.  The reference jits its
@@ -23,7 +24,7 @@ tensors), moved to the parameters' device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,8 +65,8 @@ def _batch(batch, device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _loss(params, batch, model: Model, approx, calib, rng):
-    out = model.apply(params, batch, approx=approx, calib=calib, rng=rng)
+def _loss(params, batch, model: Model, approx, calib, rng, tcfg: TrainConfig):
+    out = model.apply(params, batch, approx=approx, calib=calib, rng=rng, remat=tcfg.remat)
     return lm_loss(out.logits, batch["labels"])
 
 
@@ -92,7 +93,7 @@ def make_train_step(model: Model, approx: ApproxConfig, tcfg: TrainConfig,
         rng = tuple(rng)
 
         def grad_one(mb, r):
-            loss = _loss(params, mb, model, approx, calib, r)
+            loss = _loss(params, mb, model, approx, calib, r, tcfg)
             gs = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
             gs = [torch.zeros_like(t) if g is None else g for g, t in zip(gs, named.values())]
             return dict(zip(named, gs)), loss.detach()
@@ -133,7 +134,7 @@ def make_calibration_step(model: Model, approx: ApproxConfig, tcfg: TrainConfig)
         params = state["params"]
         batch = _batch(batch, params.device)
         out = model.apply(params, batch, approx=approx, calib=state["calib"], rng=tuple(rng),
-                          collect=True)
+                          collect=True, remat="none")
         return dict(state, calib=out.collected), {"loss": lm_loss(out.logits, batch["labels"])}
 
     return step
@@ -150,8 +151,89 @@ def make_eval_step(model: Model, approx: ApproxConfig):
     def step(state, batch, rng: Tuple[int, ...]):
         params = state["params"]
         batch = _batch(batch, params.device)
-        out = model.apply(params, batch, approx=eval_cfg, calib=state["calib"], rng=tuple(rng))
+        out = model.apply(params, batch, approx=eval_cfg, calib=state["calib"], rng=tuple(rng),
+                          remat="none")
         return {"loss": lm_loss(out.logits, batch["labels"]),
                 "accuracy": accuracy(out.logits, batch["labels"])}
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# Step cache
+# ---------------------------------------------------------------------------
+
+
+class StepCache:
+    """The built steps of one model and run, memoised under the
+    reference's key: ``(kind, resolved ApproxConfig, lr_scale,
+    microbatches, chip_aware, switch_aware, bwd_aware)``.  The resolved
+    config is the run's with the requested mode substituted, a frozen
+    dataclass whose hash covers the mode, every backend's params and the
+    site-backend map, so two phases that share a step share one entry.
+
+    The reference jits each entry and counts its traces; the port's steps
+    run eagerly, so there is nothing to trace, and :meth:`stats` reports
+    only ``{"built": n}``, the number of distinct steps built.  The chip-,
+    switch- and backward-gate-aware variants raise (ROADMAP A3, A4, A6).
+    """
+
+    def __init__(self, model: Model, approx: ApproxConfig, tcfg: TrainConfig):
+        self.model = model
+        self.approx = approx
+        self.tcfg = tcfg
+        self._fns: Dict[Tuple, Callable] = {}
+
+    def get(self, key: Tuple, build: Callable[[], Callable]) -> Callable:
+        """The step for ``key``, built by ``build()`` on first use."""
+        fn = self._fns.get(key)
+        if fn is None:
+            fn = self._fns[key] = build()
+        return fn
+
+    def stats(self) -> Dict[str, int]:
+        return {"built": len(self._fns)}
+
+    # ------------------------------------------------------------------
+    def _resolve(self, mode: Optional[TrainMode]) -> ApproxConfig:
+        if mode is None or mode == self.approx.mode:
+            return self.approx
+        return dataclasses.replace(self.approx, mode=mode)
+
+    def _tcfg_for(self, lr_scale: float, microbatches: int) -> TrainConfig:
+        if lr_scale == 1.0 and not microbatches:
+            return self.tcfg
+        return dataclasses.replace(
+            self.tcfg,
+            learning_rate=self.tcfg.learning_rate * lr_scale,
+            microbatches=microbatches or self.tcfg.microbatches,
+        )
+
+    @staticmethod
+    def _refuse(chip_aware=False, switch_aware=False, bwd_aware=False):
+        for asked, what, item in ((chip_aware, "chip", "A3"), (switch_aware, "switch", "A4"),
+                                  (bwd_aware, "backward-gate", "A6")):
+            if asked:
+                raise NotImplementedError(
+                    f"{what}-aware steps are not yet ported to repro_torch (ROADMAP {item})")
+
+    # ------------------------------------------------------------------
+    def train(self, mode: Optional[TrainMode] = None, *, lr_scale: float = 1.0,
+              microbatches: int = 0, chip_aware: bool = False, switch_aware: bool = False,
+              bwd_aware: bool = False) -> Callable:
+        self._refuse(chip_aware, switch_aware, bwd_aware)
+        approx = self._resolve(mode)
+        key = ("train", approx, lr_scale, microbatches or self.tcfg.microbatches,
+               chip_aware, switch_aware, bwd_aware)
+        return self.get(key, lambda: make_train_step(
+            self.model, approx, self._tcfg_for(lr_scale, microbatches)))
+
+    def calibration(self, *, chip_aware: bool = False) -> Callable:
+        self._refuse(chip_aware)
+        key = ("calibrate", self.approx, 1.0, self.tcfg.microbatches, chip_aware)
+        return self.get(key, lambda: make_calibration_step(self.model, self.approx, self.tcfg))
+
+    def eval(self, *, chip_aware: bool = False, switch_aware: bool = False) -> Callable:
+        self._refuse(chip_aware, switch_aware)
+        key = ("eval", self.approx, 1.0, self.tcfg.microbatches, chip_aware, switch_aware)
+        return self.get(key, lambda: make_eval_step(self.model, self.approx))

@@ -1144,3 +1144,57 @@ def test_model_mode_autograd_on_the_kernels(cuda, be, kernel, dtype):
         assert got.dtype == dtype
         scale = float(ref_.float().abs().max())
         assert float((got.cpu().float() - ref_.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.gpu
+def test_trainer_restores_bitwise_on_the_card(cuda, tmp_path):
+    """The phase-plan Trainer at the smoke config on the card (analog,
+    ``remat="block"``): a fault after the mid-phase save at step 4 restores
+    that generation in place and replays; the run ends bitwise where an
+    uninterrupted run ends, its replayed steps repeat their first losses
+    bit for bit, and K6 launches in its emulated steps."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import AnalogParams, ApproxConfig, Backend, TrainConfig
+    from repro_torch.configs.base import TrainMode, parse_phase_specs
+    from repro_torch.convert import train_state_to_numpy
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.runtime.trainer import Trainer
+
+    approx = ApproxConfig(backend=Backend.ANALOG, mode=TrainMode.INJECT,
+                          analog=AnalogParams(array_size=16, adc_bits=4), calibrate_every=3)
+    phases = parse_phase_specs(["exact:1", "inject:4:calib=2", "model:2"])
+    tcfg = TrainConfig(total_steps=7, warmup_steps=1, learning_rate=2e-3, phases=phases,
+                       checkpoint_every=4, keep_checkpoints=1)
+    model = build_model(get_smoke_config("qwen2.5-3b"))
+
+    def run(name, fault_at=None):
+        fired = []
+
+        def hook(s):
+            if s == fault_at and not fired:
+                fired.append(s)
+                raise RuntimeError("simulated device loss")
+
+        tr = Trainer(model, approx, tcfg, SyntheticLM(512, 16, 4, seed=3), str(tmp_path / name),
+                     seed=1, fault_hook=hook, device=cuda)
+        before = build.LAUNCHES.get("analog_matmul", 0)
+        return tr, tr.run(), build.LAUNCHES.get("analog_matmul", 0) - before
+
+    clean, want, k6 = run("clean")
+    tr, got, _ = run("fault", fault_at=5)
+    assert k6 > 0 and got.restarts == 1
+    assert got.steps == [0, 1, 2, 3, 4, 4, 5, 6]
+    assert got.losses[4] == got.losses[5] == want.losses[4]
+    assert got.losses[5:] == want.losses[4:]
+    a, b = train_state_to_numpy(tr._state), train_state_to_numpy(clean._state)
+    for name in ("params", "opt", "calib"):
+        for x, y in zip(_leaves(a[name]), _leaves(b[name])):
+            assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), name
+    assert int(a["step"]) == 7
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    return [tree]

@@ -200,7 +200,8 @@ def test_site_backends_route_per_site():
 def test_unported_parts_raise():
     """Archs and training options the port does not run yet raise (every
     backend is ported: sc and analog since the second slice; every train
-    mode since the training slice)."""
+    mode since the training slice; every remat policy since the Trainer
+    slice)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import injection, registry
@@ -208,9 +209,10 @@ def test_unported_parts_raise():
     with pytest.raises(NotImplementedError):
         get_config("yi-6b")
     assert set(registry.names()) == {b.value for b in TBackend}
-    for kw in ({"remat": "block"}, {"optim_compress": "bf16"}):
-        with pytest.raises(NotImplementedError):
-            TrainConfig(**kw)
+    with pytest.raises(NotImplementedError):
+        TrainConfig(optim_compress="bf16")
+    with pytest.raises(ValueError):  # every remat policy is ported; a bad name raises
+        TrainConfig(remat="blocks")
     x, w = torch.ones((2, 8)), torch.ones((8, 4))
     cfg = TApprox(backend=TBackend.SC, mode=TMode.MODEL)
     with pytest.raises(NotImplementedError):

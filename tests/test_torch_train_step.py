@@ -105,7 +105,7 @@ def _cfgs(be, mode, **kw):
 
 def _tcfgs(**kw):
     kw = dict(dict(total_steps=10, warmup_steps=2, learning_rate=2e-3), **kw)
-    return JTrainConfig(remat="none", **kw), TrainConfig(**kw)
+    return JTrainConfig(remat="none", **kw), TrainConfig(remat="none", **kw)
 
 
 def _states(jm, ja, seed=0):
