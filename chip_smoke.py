@@ -87,11 +87,43 @@ checkout of the repository.  Phases, each synchronised before the next:
    an INJECT step, which launches the normal entry.  It removes its
    checkpoint directory (under the gitignored ``build/``) at the end.
 
+7. Serve over a chip fleet at full width on the engine phase's weights
+   (fused decode): ``Fleet(2)``, a ``DriftModel`` strong enough that each
+   chip's probe loss moves within the run, recalibration every 3 engine
+   steps at most, the engine's default probe (2 x 32 random tokens), 2
+   slots a lane and 15 requests over the five backends, so every emulated
+   backend serves on both chips.  Every chip-bound lane must bind its chip
+   (a recalibration), drift, and recalibrate again; every kernel of the
+   path must launch.  One decode step of each chip-bound lane after such
+   a recalibration is recorded, and each of its fused projections (the
+   chip's real column gains, offset or stuck-at columns and the lane's
+   fitted mean-error correction in K2's, K5's or K7's epilogue) is held
+   bitwise against its plain fused version on the card and against the
+   composed path (the emulator's kernel, then the chip, then the
+   correction).  Counts the served logit rows that are not finite, per
+   lane, and fails if a lane other than SC's serves one (SC's corrected
+   lanes overflow at full width, ROADMAP section C).  Prints
+   ``fleet_report()``, those counts, the launches, the wall time of
+   each bind and recalibration, and, per backend, the device ms (profiler
+   traces), the host's waits for the card (torch's sync debug mode) and
+   the wall ms (median of 7, the two in turns) of a chip-bound decode
+   step beside a nominal one.
+8. The static-batch baseline (``run_static_baseline``, waves of 4
+   padded prompts fed token by token) against the engine (warm, fused) on
+   one queue of 6 exact requests at full width: tok/s of each.
+9. A variation-aware Trainer phase at full width with its first 6 layers
+   (as phase 6): analog, INJECT 2 steps calibrating every step, then
+   ``Phase(MODEL, fleet=2)`` for 3 steps, ``remat="none"``, no checkpoint
+   written.  It asserts 3 fleet steps, the chips 0, 1, 0 of the fleet
+   (round robin by step), K6 in every MODEL step, finite losses; prints
+   each step's wall ms and launches.
+
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -100,6 +132,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -635,23 +668,29 @@ def phase_sc_analog(dev, cfg):
 BACKENDS = ("exact", "log_mult", "approx_mult", "sc", "analog")
 
 
-def _record_projections(names):
+def _record_projections(names, keep=None):
     """Wrap the registry specs of ``names`` so every emulated projection is
     kept as (name, fused, x, w, params, rng, epi, y), the operands copied
     (a train step updates its weights in place); returns the list and a
-    function that restores the specs."""
+    function that restores the specs.  With ``keep`` (a callable), only the
+    projections it accepts are kept, their operands by reference (serving
+    changes no weight)."""
     from repro_torch.core import registry
 
     seen, specs = [], {n: registry.get(n) for n in names}
+    own = (lambda t: t.detach().clone()) if keep is None else (lambda t: t)
+    kept = keep if keep is not None else (lambda fused: True)
     for name, spec in specs.items():
         def emulate(x, w, p, rng, _n=name, _s=spec):
             y = _s.emulate(x, w, p, rng)
-            seen.append((_n, False, x.detach().clone(), w.detach().clone(), p, rng, None, y))
+            if kept(False):
+                seen.append((_n, False, own(x), own(w), p, rng, None, y))
             return y
 
         def fused_emulate(x, w, p, rng, epi, _n=name, _s=spec):
             y = _s.fused_emulate(x, w, p, rng, epi)
-            seen.append((_n, True, x.detach().clone(), w.detach().clone(), p, rng, epi, y))
+            if kept(True):
+                seen.append((_n, True, own(x), own(w), p, rng, epi, y))
             return y
 
         registry.register(dataclasses.replace(spec, emulate=emulate, fused_emulate=fused_emulate),
@@ -808,6 +847,21 @@ def _kernel_group(name: str) -> str:
         if key in low:
             return group
     return "other"
+
+
+def _syncs(fn) -> int:
+    """How many times one call of ``fn`` makes the host wait for the card
+    (torch's sync debug mode: a read back, a blocking copy from the host,
+    a stream synchronisation)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing" in str(w.message) for w in caught)
 
 
 def _traced_ms(fn):
@@ -1268,6 +1322,366 @@ def phase_train_reference(dev):
         print(f"[train-ref] {json.dumps(report)}", flush=True)
 
 
+def phase_epilogue(dev, cfg):
+    """K2 (both multipliers), K5 and K7 at qwen2.5-3b's decode shape (M 4,
+    K 2048, N 11008), each through its backend's fused projection (what a
+    decode step calls), with the empty epilogue and with a sampled chip's
+    terms (sigmas tripled, so that stuck-at columns fire) and correction
+    stats fitted against the exact product: CUDA events over calls, and
+    from traces the kernel's own device time and every kernel's of the
+    call.  Returns {kernel: its chip-epilogue times}."""
+    from repro_torch.configs.base import ApproxConfig, Backend, TrainMode
+    from repro_torch.core import calibration, registry
+    from repro_torch.core.approx_linear import ApproxCtx
+    from repro_torch.hw import VariationModel, chip_epilogue, sample_profile
+    from repro_torch.kernels import prng
+
+    M, K, N, bf = DECODE_M, cfg.d_model, cfg.d_ff, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((M, K), generator=g, device=dev).to(bf)
+    w = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).to(bf)
+    exact = x.float() @ w.float()
+    chip = sample_profile(prng.fold_in(prng.prng_key(0), 0), VariationModel(scale=3.0))
+    kernels = {"approx_mult": ("elementwise_matmul_fused[approx_mult]", "repro_vpu::"),
+               "log_mult": ("elementwise_matmul_fused[log_mult]", "repro_vpu::"),
+               "sc": ("sc_matmul_packed_fused", "repro_sc::"),
+               "analog": ("analog_matmul_fused", "repro_analog::")}
+    out = {}
+    for be, (kname, ns) in kernels.items():
+        approx = ApproxConfig(backend=Backend(be), mode=TrainMode.MODEL)
+        spec, p = registry.get(be), approx.params_for(Backend(be))
+        rng = ApproxCtx(cfg=approx, rng=(0,)).site_rng("mlp_up")
+        colgain, coladd = chip_epilogue("mlp_up", be, chip, N, bf, dev)
+        y = spec.fused_emulate(x, w, p, rng, {"colgain": colgain, "coladd": coladd}
+                               if colgain is not None else {"coladd": coladd})
+        stats = calibration.fit_error_stats(y, y.float() - exact, 3)
+        epi = {"coladd": coladd, "mean_coeffs": stats["mean"], "mean_scale": stats["scale"]}
+        if colgain is not None:
+            epi["colgain"] = colgain
+        row = {"name": kname, "shape": [M, K, N]}
+        for case, e in (("empty", {}), ("chip", epi)):
+            run = lambda e=e: spec.fused_emulate(x, w, p, rng, e)
+            row[f"{case}_ms"] = cuda_ms(run, 10)
+            row[f"{case}_device_ms"] = device_ms(run, 10, ns)
+            row[f"{case}_call_device_ms"] = device_ms(run, 10)
+        print(f"[kernels] epilogue {json.dumps(row)}", flush=True)
+        out[kname] = {"chip_epilogue_ms": row["chip_ms"],
+                      "chip_epilogue_device_ms": row["chip_device_ms"]}
+    return out
+
+
+# phase_fleet's chips and drift: the drift is strong enough that every lane
+# sees its probe loss move within the run, and the recalibration cadence
+# short enough that every chip-bound lane refits after drifting
+FLEET_CHIPS = 2
+FLEET_DRIFT = dict(gain_walk_std=0.5, offset_walk_std=0.25, fault_growth=1.0)
+FLEET_RECAL_EVERY = 3
+FLEET_SLOTS = 2  # three requests of a backend need a second lane, on the second chip
+FLEET_WALL_TURNS = 7  # nominal and chip-bound decode steps timed in turns
+
+
+@contextlib.contextmanager
+def _plain_on_card():
+    """The kernel wrappers take their plain versions on the card's tensors
+    too, for the hold of a served projection (never on the served path)."""
+    from repro_torch.kernels import ops
+
+    on_cuda = ops._on_cuda
+    ops._on_cuda = lambda *tensors: False
+    try:
+        yield
+    finally:
+        ops._on_cuda = on_cuda
+
+
+def _hold_fleet_projection(rec) -> None:
+    """A fused decode projection with a chip's terms and a lane's fitted
+    correction in its epilogue, against the plain fused version on the card
+    and the composed path (the emulator's kernel, then the chip, then the
+    mean error subtracted), bitwise."""
+    from repro_torch.core import calibration, registry
+    from repro_torch.kernels.epilogue import apply_epilogue
+
+    name, _, x, w, p, rng, epi, y = rec
+    spec = registry.get(name)
+    if "coladd" not in epi or "mean_coeffs" not in epi:
+        raise AssertionError(f"[fleet] {name} projection without chip or correction: {sorted(epi)}")
+    with _plain_on_card():
+        plain = spec.fused_emulate(x, w, p, rng, epi)
+    composed = apply_epilogue(spec.emulate(x, w, p, rng), colgain=epi.get("colgain"),
+                              coladd=epi["coladd"])
+    stats = {"mean": epi["mean_coeffs"], "scale": epi["mean_scale"]}
+    composed = composed - calibration.predict_mean(stats, composed).to(composed.dtype)
+    for what, want in (("plain fused version", plain), ("composed path", composed)):
+        # bitwise, and NaN where the other is NaN: a lane whose corrected
+        # activations overflowed upstream (ROADMAP section C: SC at full
+        # width) serves NaN rows
+        if not (torch.equal(torch.isnan(y), torch.isnan(want))
+                and torch.equal(torch.nan_to_num(y, nan=0.0), torch.nan_to_num(want, nan=0.0))):
+            _hold(f"{name} fused decode projection with a chip, against its {what}",
+                  (tuple(x.shape), tuple(w.shape)), y, want)
+    return int((~torch.isfinite(x)).any())
+
+
+def phase_fleet(dev, cfg, params, card: str):
+    """Serving over a chip fleet at full width (see the module docstring,
+    phase 7).  Returns the launches of the port's kernels in the engine
+    run."""
+    from repro_torch.core.approx_linear import ApproxCtx
+    from repro_torch.hw import DriftModel, Fleet
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.models import decode as D
+    from repro_torch.runtime.engine import Engine, synthetic_requests
+
+    model = build_model(cfg)
+    queue = synthetic_requests(15, cfg.vocab_size, seed=3, prompt_lens=(16, 48),
+                               gen_lens=(8, 14), backends=BACKENDS)
+    eng = Engine(model, params, n_slots=FLEET_SLOTS, max_seq=MAX_SEQ, fused=True, device=dev,
+                 seed=0, fleet=Fleet(FLEET_CHIPS, seed=0), drift=DriftModel(**FLEET_DRIFT),
+                 recalibrate_every=FLEET_RECAL_EVERY)
+    timings, held, gate = [], set(), {"on": False}
+
+    def timed(kind, fn, backend_of):
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            timings.append((kind, backend_of(*args), time.perf_counter() - t0))
+            return out
+        return call
+
+    # a bind's wall time holds its recalibration, which is also timed alone
+    eng._new_lane = timed("bind", eng._new_lane,
+                          lambda approx, index: approx.backend.value if approx.active else None)
+    eng._recalibrate = timed("recalibrate", eng._recalibrate, lambda lane: lane.backend)
+    decode_lane = eng._decode_lane
+
+    def decode_once_after_drift(lane):
+        # record one decode step of each chip lane once it has refitted
+        # after drifting: every projection with its chip and its stats
+        gate["on"] = lane.chip is not None and lane.recals >= 2 and lane.name not in held
+        try:
+            return decode_lane(lane)
+        finally:
+            if gate["on"]:
+                held.add(lane.name)
+            gate["on"] = False
+
+    eng._decode_lane = decode_once_after_drift
+    # the served logit rows that are not finite, per lane: only SC's
+    # corrected lanes may serve them (ROADMAP section C)
+    bad_rows, decode, prefill = {}, eng._decode, eng._prefill
+
+    def count_bad(lane, rows):
+        bad = int((~torch.isfinite(rows)).any(dim=-1).sum())
+        bad_rows[lane.name] = bad_rows.get(lane.name, 0) + bad
+        if bad and lane.backend != "sc":
+            raise AssertionError(f"[fleet] {lane.name} served {bad} non-finite logit rows")
+
+    def counted_decode(lane, rng):
+        logits = decode(lane, rng)
+        count_bad(lane, logits[[i for i, st in enumerate(lane.slots) if st is not None]])
+        return logits
+
+    def counted_prefill(lane, toks, length, slot, rng):
+        last = prefill(lane, toks, length, slot, rng)
+        count_bad(lane, last[None])
+        return last
+
+    eng._decode, eng._prefill = counted_decode, counted_prefill
+    seen, restore = _record_projections(EMULATED, keep=lambda fused: fused and gate["on"])
+    try:
+        build.reset_launches()
+        t0 = time.perf_counter()
+        results = eng.run(queue)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    finally:
+        restore()
+    if sorted(results) != list(range(len(queue))):
+        raise AssertionError(f"[fleet] served {sorted(results)} of {len(queue)} requests")
+    for req in queue:
+        toks = results[req.rid]["tokens"]
+        if len(toks) != req.max_new_tokens or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"[fleet] request {req.rid}: tokens {toks}")
+    missing = [k for k in PATH_KERNELS if launches.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"[fleet] kernels never launched: {missing}")
+    chip_lanes = [l for l in eng.lanes.values() if l.chip is not None]
+    if ({l.backend for l in chip_lanes} != set(EMULATED)
+            or {l.chip_id for l in chip_lanes} != set(range(FLEET_CHIPS))):
+        raise AssertionError(f"[fleet] chip lanes {[l.name for l in chip_lanes]}")
+    for lane in chip_lanes:
+        # bound (a recalibration at bind), drifted, refitted after drifting
+        if lane.recals < 2 or float(lane.chip["age"]) <= 0 or lane.probe_losses[1][0] <= 0:
+            raise AssertionError(f"[fleet] {lane.name}: {lane.recals} recalibrations, age "
+                                 f"{float(lane.chip['age'])}, probes {lane.probe_losses}")
+    if held != {l.name for l in chip_lanes}:
+        raise AssertionError(f"[fleet] decode steps held for {sorted(held)} only")
+    t0 = time.perf_counter()
+    by_backend, nonfinite = {}, {}
+    for rec in seen:
+        by_backend[rec[0]] = by_backend.get(rec[0], 0) + 1
+        nonfinite[rec[0]] = nonfinite.get(rec[0], 0) + _hold_fleet_projection(rec)
+    print(f"[fleet] {len(seen)} fused decode projections with a chip and fitted correction "
+          f"bitwise their plain version and the composed path on the card: "
+          f"{json.dumps(by_backend)}; of which with a non-finite input: "
+          f"{json.dumps(nonfinite)} ({time.perf_counter() - t0:.1f}s)", flush=True)
+    del seen
+    metrics = dict(eng.metrics(), wall_s=wall, card=card)
+    print(f"[fleet] metrics {json.dumps(metrics)}", flush=True)
+    print(f"[fleet] fleet_report {json.dumps(eng.fleet_report())}", flush=True)
+    print(f"[fleet] non-finite logit rows served per lane {json.dumps(bad_rows)}", flush=True)
+    print(f"[fleet] launches {json.dumps(launches)}", flush=True)
+    for kind in ("bind", "recalibrate"):
+        for be in EMULATED:
+            secs = [t for k, b, t in timings if k == kind and b == be]
+            print(f"[fleet] {kind} {be}: wall s {json.dumps(secs)}", flush=True)
+
+    # one decode step of a chip-bound lane (chip and correction in the
+    # epilogues, the stats sliced per layer) against a nominal one (no
+    # chip, no stats), per backend, from profiler traces
+    tokens = torch.zeros((FLEET_SLOTS, 1), dtype=torch.int64, device=dev)
+    pos = torch.zeros((FLEET_SLOTS,), dtype=torch.int32, device=dev)
+    for lane in sorted(chip_lanes, key=lambda l: (l.backend, l.chip_id)):
+        if lane.chip_id:
+            continue
+
+        def step(chip, _lane=lane):
+            ctx = ApproxCtx(cfg=_lane.approx, fused=True, rng=(0, 1),
+                            chip=_lane.chip if chip else None, correct=chip)
+            D.serve_step(params, _lane.cache, tokens, pos, cfg, ctx=ctx,
+                         calib=_lane.calib if chip else None, flash=True)
+
+        row = {"backend": lane.backend, "slots": FLEET_SLOTS, "card": card}
+        for kind, chip in (("nominal", False), ("chip", True)):
+            row[f"{kind}_device_ms"], row[f"{kind}_by_group_ms"] = _traced_ms(lambda: step(chip))
+            row[f"{kind}_syncs"] = _syncs(lambda: step(chip))
+        # wall: the two in turns (the host is shared, and its load drifts)
+        walls = {False: [], True: []}
+        for _ in range(FLEET_WALL_TURNS):
+            for chip in (False, True):
+                walls[chip].append(cuda_ms(lambda: step(chip), 1))
+        for kind, chip in (("nominal", False), ("chip", True)):
+            row[f"{kind}_wall_ms"] = float(np.median(walls[chip]))
+            row[f"{kind}_wall_ms_all"] = walls[chip]
+        row["chip_over_nominal_device_ms"] = row["chip_device_ms"] - row["nominal_device_ms"]
+        print(f"[fleet] decode-step {json.dumps(row)}", flush=True)
+    return launches
+
+
+def phase_static(dev, cfg, params, card: str):
+    """The static-batch baseline against the engine on one exact queue at
+    full width (see the module docstring, phase 8)."""
+    from repro_torch.models import build_model
+    from repro_torch.runtime.engine import Engine, run_static_baseline, synthetic_requests
+
+    model = build_model(cfg)
+    queue = synthetic_requests(6, cfg.vocab_size, seed=4, prompt_lens=(16, 64),
+                               gen_lens=(16, 32))
+    eng = Engine(model, params, n_slots=DECODE_M, max_seq=MAX_SEQ, fused=True, device=dev,
+                 seed=0)
+    eng.run(queue)  # warm: every call of the measured run below in steady state
+    eng.reset_metrics()
+    again = [dataclasses.replace(r, rid=r.rid + len(queue)) for r in queue]
+    t0 = time.perf_counter()
+    res = eng.run(again)
+    torch.cuda.synchronize()
+    engine = dict(eng.metrics(), wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    static = run_static_baseline(model, params, queue, batch=DECODE_M)
+    static_wall = time.perf_counter() - t0
+    outputs = static.pop("outputs")
+    for req in queue:
+        toks = outputs[req.rid]
+        if len(toks) != req.max_new_tokens or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"[static] request {req.rid}: tokens {toks}")
+        if len(res[req.rid + len(queue)]["tokens"]) != req.max_new_tokens:
+            raise AssertionError(f"[static] the engine's request {req.rid}")
+    row = {"requests": len(queue), "card": card, "static": dict(static, wall_s=static_wall),
+           "engine": {k: engine[k] for k in ("prefill_tokens", "decode_tokens", "prefill_tok_s",
+                                             "decode_tok_s", "total_tok_s", "p50_ms", "p99_ms",
+                                             "slot_util", "wall_s")}}
+    print(f"[static] {json.dumps(row)}", flush=True)
+
+
+def phase_trainer_fleet(dev, cfg, params, card: str):
+    """A variation-aware Trainer phase at full width with its first
+    TRAINER_LAYERS layers (see the module docstring, phase 9).  Returns the
+    launches of the port's kernels in its run."""
+    import shutil
+
+    from repro_torch.configs.base import TrainConfig, TrainMode, parse_phase_specs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.runtime.trainer import Trainer
+    from repro_torch.training import steps as step_lib
+
+    cfg_l = dataclasses.replace(cfg, n_layers=TRAINER_LAYERS)
+    params_l = Transformer(params.embed, params.final_norm,
+                           list(params.layers[:TRAINER_LAYERS]), params.lm_head)
+    model = build_model(cfg_l)
+    approx = _train_approx("analog", TrainMode.INJECT)
+    phases = parse_phase_specs(("inject:2:calib=1", "model:3:fleet=2"))
+    tcfg = TrainConfig(total_steps=5, warmup_steps=1, learning_rate=2e-3, phases=phases,
+                       remat="none")
+    data = SyntheticLM(cfg.vocab_size, seq_len=TRAIN_T, global_batch=TRAIN_B, seed=2)
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "trainer_fleet_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = step_lib.init_train_state(model, 0, approx, tcfg, device=dev, params=params_l)
+    trainer = Trainer(model, approx, tcfg, data, str(ckpt_dir), seed=0, state=state)
+    # no checkpoint: the card's host takes 45 GiB of disk writes a run, and
+    # phase_trainer's two generations take most of them
+    trainer._save = lambda step, state: None
+    chips, log = [], []
+    chip_for = trainer._chip_for
+
+    def recording(phase, step):
+        chip = chip_for(phase, step)
+        chips.append(None if chip is None else list(chip["key"]))
+        return chip
+
+    trainer._chip_for = recording
+    _step_recorder(trainer, log)
+    try:
+        build.reset_launches()
+        t0 = time.perf_counter()
+        report = trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    fleet = trainer._fleets[2]
+    want = [None, None] + [list(fleet.chip(s % 2)["key"]) for s in (2, 3, 4)]
+    if report.fleet_steps != 3 or chips != want:
+        raise AssertionError(f"[trainer-fleet] fleet steps {report.fleet_steps}, chips {chips}")
+    for entry in log:
+        k6 = entry["launches"].get("analog_matmul", 0)
+        if entry["mode"] == "model" and not k6:
+            raise AssertionError(f"[trainer-fleet] a MODEL step without K6: {entry}")
+        print(f"[trainer-fleet] {json.dumps(entry)}", flush=True)
+    if not all(np.isfinite(report.losses)):
+        raise AssertionError(f"[trainer-fleet] losses {report.losses}")
+    summary = {"arch": cfg.name, "layers": TRAINER_LAYERS, "batch": [TRAIN_B, TRAIN_T],
+               "schedule": trainer.plan.describe(), "fleet_steps": report.fleet_steps,
+               "chips": chips, "losses": report.losses, "step_s": report.step_times,
+               "calibrations": report.calibrations, "wall_s": wall,
+               "k6_launches": launches.get("analog_matmul", 0), "card": card}
+    print(f"[trainer-fleet] summary {json.dumps(summary)}", flush=True)
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1297,22 +1711,34 @@ def main() -> int:
     torch.cuda.synchronize()
     summary.update(phase_sc_analog(dev, cfg))
     torch.cuda.synchronize()
+    for name, times in phase_epilogue(dev, cfg).items():
+        summary[name].update(times)
     phase_reference(dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     launches, params = phase_engine(dev, cfg, card)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fleet_launches = phase_fleet(dev, cfg, params, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_static(dev, cfg, params, card)
+    print(f"[fleet] the fleet and static phases: {time.perf_counter() - t0:.1f}s", flush=True)
     summary.update(phase_normal(dev))
     train_launches, train_peak = phase_train(dev, cfg, params, card)
     for k, v in phase_train_backends(dev, cfg, params).items():
         train_launches[k] = train_launches.get(k, 0) + v
     trainer_launches = phase_trainer(dev, cfg, params, card, train_peak)
+    t0 = time.perf_counter()
+    trainer_fleet_launches = phase_trainer_fleet(dev, cfg, params, card)
+    print(f"[trainer-fleet] the phase: {time.perf_counter() - t0:.1f}s", flush=True)
     del params
     torch.cuda.empty_cache()
     phase_train_reference(dev)
     torch.cuda.synchronize()
     print(f"[train] launches {json.dumps(train_launches)}", flush=True)
     print(f"[trainer] launches {json.dumps(trainer_launches)}", flush=True)
+    print(f"[trainer-fleet] launches {json.dumps(trainer_fleet_launches)}", flush=True)
 
     kernels = []
     for name in PATH_KERNELS + tuple(TRAIN_KERNELS):
@@ -1323,11 +1749,13 @@ def main() -> int:
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": os.path.normpath(f"src/repro/kernels/{replaces}"),
-            "launches": (launches.get(name, 0) + train_launches.get(name, 0)
-                         + trainer_launches.get(name, 0)),
+            "launches": sum(d.get(name, 0) for d in (launches, train_launches, trainer_launches,
+                                                      fleet_launches, trainer_fleet_launches)),
             "engine_launches": launches.get(name, 0),
             "train_launches": train_launches.get(name, 0),
             "trainer_launches": trainer_launches.get(name, 0),
+            "fleet_launches": fleet_launches.get(name, 0),
+            "trainer_fleet_launches": trainer_fleet_launches.get(name, 0),
             "shape": row["shape"],
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
@@ -1336,7 +1764,8 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
-            **{k: row[k] for k in ("bound_terms_ms", "alu_bound_ms") if k in row},
+            **{k: row[k] for k in ("bound_terms_ms", "alu_bound_ms", "chip_epilogue_ms",
+                                   "chip_epilogue_device_ms") if k in row},
         })
     # the port's path imports none of jax, the JAX package or ml_dtypes
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro", "ml_dtypes"))

@@ -127,11 +127,12 @@ class Phase:
     phases that share (mode, lr_scale, microbatches) reuse one built step
     function regardless of step budgets or calibration policy.
 
-    ``fleet > 0`` and ``backward != "exact"`` are kept constructible, so
-    that a plan's ``describe()`` and the cache key read as the
-    reference's; the port's :class:`~repro_torch.runtime.trainer.Trainer`
-    refuses such phases until chip fleets (ROADMAP A3) and the gated
-    approximate backward (A6) are ported.
+    ``fleet > 0`` trains each step against a chip of a sampled fleet
+    (variation-aware training).  ``backward != "exact"`` is kept
+    constructible, so that a plan's ``describe()`` and the cache key read
+    as the reference's; the port's
+    :class:`~repro_torch.runtime.trainer.Trainer` refuses such phases until
+    the gated approximate backward (ROADMAP A6) is ported.
     """
 
     mode: TrainMode
@@ -144,7 +145,7 @@ class Phase:
     microbatches: int = 0          # 0 => TrainConfig.microbatches
     fleet: int = 0                 # variation-aware: round-robin a chip
                                    # per step over a fleet of this many
-                                   # sampled device instances (ROADMAP A3);
+                                   # sampled device instances;
                                    # 0 => nominal hardware
     backward: str = "exact"        # "exact" | "approx" | "auto": gated
                                    # int8 backward (ROADMAP A6);

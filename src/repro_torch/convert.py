@@ -196,3 +196,31 @@ def train_state_from_jax(state: Dict[str, Any], device="cuda") -> Dict[str, Any]
 def train_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
     """The port's train state as numpy in the reference's layout."""
     return _tree_to(train_state_layout(state))
+
+
+def calib_from_jax(tree, device="cuda"):
+    """A reference calibration tree (or one site's stats), as numpy, as
+    the port's: the same nested dicts of float32 tensors on ``device``."""
+    return _tree_from(tree, torch.device(device))
+
+
+def chip_from_jax(profile: Dict[str, Any]):
+    """A reference chip profile (``jax.tree.map(np.asarray, profile)``,
+    its key a uint32 pair) as the port's
+    (:func:`repro_torch.hw.variation.sample_profile`'s layout): the key a
+    pair of ints, the seed an int32 0-d tensor, the other leaves float32
+    0-d tensors on the host, and no per-column draws made yet."""
+    out = {}
+    for k, v in profile.items():
+        if k == "key":
+            out[k] = tuple(int(x) for x in np.asarray(v).reshape(-1))
+        elif isinstance(v, dict):
+            out[k] = chip_from_jax(v) if k == "base" else {
+                n: torch.tensor(np.asarray(a, np.float32)) for n, a in v.items()}
+        elif k == "seed":
+            out[k] = torch.tensor(np.asarray(v, np.int32))
+        else:
+            out[k] = torch.tensor(np.asarray(v, np.float32))
+    if "base" in out:
+        out["draws"] = {}
+    return out

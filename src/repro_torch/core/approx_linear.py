@@ -12,8 +12,11 @@ through (port of ``repro.core.approx_linear``: ``ApproxCtx``,
   stats in ``ctx.collected``)
 
 The backend is resolved per call site (``cfg.backend_for(site)``), so one
-model can mix targets.  The reference's chip, correction, runtime-switch,
-backward-gate and blend hooks are not ported yet.
+model can mix targets.  ``ctx.chip`` perturbs every emulated forward (MODEL
+mode, calibration passes) as that device instance would, and
+``ctx.correct`` subtracts the site's fitted mean error from MODEL-mode
+outputs (online recalibration's correction).  The reference's
+runtime-switch, backward-gate and blend hooks are not ported yet.
 """
 from __future__ import annotations
 
@@ -23,8 +26,10 @@ import zlib
 from typing import Any, Callable, Dict, Optional, Tuple
 
 from repro_torch.configs.base import ApproxConfig, Backend, TrainMode
-from repro_torch.core import injection, registry
+from repro_torch.core import calibration, injection, registry
+from repro_torch.hw import variation
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.epilogue import apply_epilogue
 from repro_torch.kernels.sc_matmul import SCDraws
 
 
@@ -57,6 +62,15 @@ class ApproxCtx:
     ctx: one decode step.  A full-sequence forward gives each layer a ctx
     of its own (:meth:`for_layer`, with an empty memo), so it keeps no
     more than one layer's draws alive.
+
+    ``chip`` is a device instance (:mod:`repro_torch.hw.variation`): every
+    emulated forward is perturbed as that chip would compute it.
+    ``correct`` subtracts the fitted mean error of ``calib``'s site from
+    MODEL-mode outputs, and ``calib_exact_ref`` makes a calibration pass
+    fit those stats against the exact matmul (see
+    :func:`repro_torch.core.injection.calibrate_matmul`).  The memo also
+    keeps the chip's epilogue terms per site, which every layer of a
+    decode step shares.
     """
 
     cfg: ApproxConfig
@@ -66,6 +80,9 @@ class ApproxCtx:
     calib: Optional[Dict[str, Any]] = None
     collect: bool = False
     collected: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    chip: Optional[Dict[str, Any]] = None
+    correct: bool = False
+    calib_exact_ref: bool = False
     _memo: Dict = dataclasses.field(default_factory=dict, init=False, repr=False, compare=False)
 
     def site_path(self, site: str) -> Tuple[int, ...]:
@@ -84,6 +101,24 @@ class ApproxCtx:
             self._memo[key] = SCDraws(*(self.draws or kops.sc_draws)(path, n_ports, n_bits, device))
         return self._memo[key]
 
+    def chip_terms(self, site: str, backend_name: str, n: int, dtype, device):
+        """The chip's ``(colgain, coladd)`` at ``site``
+        (:func:`repro_torch.hw.variation.chip_epilogue`), made once per ctx."""
+        if self.chip is None:
+            return None, None
+        key = ("chip", site, backend_name, n, dtype, str(device))
+        if key not in self._memo:
+            self._memo[key] = variation.chip_epilogue(site, backend_name, self.chip, n, dtype,
+                                                      device)
+        return self._memo[key]
+
+    def with_calib(self, calib: Optional[Dict[str, Any]]) -> "ApproxCtx":
+        """This ctx with a layer's calibration sites, sharing its path and
+        its memo (a decode step's layers draw once per site, not per layer)."""
+        ctx = dataclasses.replace(self, calib=calib)
+        ctx._memo = self._memo
+        return ctx
+
     def for_layer(self, idx: int, calib: Optional[Dict[str, Any]] = None) -> "ApproxCtx":
         """The ctx of layer ``idx`` of a full-sequence forward: the layer
         index folded into the path (the reference's per-layer key), the
@@ -97,18 +132,35 @@ def skipped_site(site: str, cfg: ApproxConfig) -> bool:
     return cfg.skip_lm_head and site.endswith("lm_head")
 
 
+def _backend_name(backend) -> str:
+    return backend.value if isinstance(backend, Backend) else str(backend)
+
+
 def _approx_branch(x, w, site: str, backend, ctx: ApproxCtx):
     """The non-exact projection body for one backend under the ctx's mode."""
     cfg = ctx.cfg
     if cfg.mode == TrainMode.MODEL:
         spec = registry.get(backend)
         rng = ctx.site_rng(site)
+        name = _backend_name(backend)
+        stats = (ctx.calib or {}).get(site) if ctx.correct else None
         if ctx.fused and spec.fused_emulate is not None and not injection.needs_grad(x, w):
-            # no chip and no correction: the epilogue is empty, as in the
-            # reference when a lane has no fleet (and then the composed
-            # path below, which trains, gives the same bits)
-            return injection.fused_model_mode_matmul(x, w, cfg, rng, {}, backend)
-        return injection.model_mode_matmul(x, w, cfg, rng, backend)
+            # the chip and the correction in the kernel's epilogue: the same
+            # bits as the composed path below
+            colgain, coladd = ctx.chip_terms(site, name, w.shape[-1], x.dtype, x.device)
+            epi = {"colgain": colgain, "coladd": coladd,
+                   "mean_coeffs": None if stats is None else stats["mean"],
+                   "mean_scale": None if stats is None else stats["scale"]}
+            return injection.fused_model_mode_matmul(x, w, cfg, rng, epi, backend)
+        y = injection.model_mode_matmul(x, w, cfg, rng, backend)
+        # what this chip computes (variation.apply_chip, its terms memoised)
+        colgain, coladd = ctx.chip_terms(site, name, y.shape[-1], y.dtype, y.device)
+        if coladd is not None:
+            y = apply_epilogue(y, colgain=colgain, coladd=coladd)
+        if stats is not None:
+            # online recalibration's de-bias (stats fitted against exact)
+            y = y - calibration.predict_mean(stats, y).to(y.dtype)
+        return y
     if cfg.mode == TrainMode.INJECT:
         stats = (ctx.calib or {}).get(site)
         return injection.inject_mode_matmul(x, w, cfg, stats, ctx.site_path(site), backend)
@@ -138,7 +190,8 @@ def dense(x, w, b=None, *, site: str = "", ctx: ApproxCtx = None):
                     ctx.collected[site] = prev
         elif ctx.collect:
             y, ctx.collected[site] = injection.calibrate_matmul(
-                x, w, ctx.cfg, ctx.site_rng(site), backend, site=site
+                x, w, ctx.cfg, ctx.site_rng(site), backend, site=site, chip=ctx.chip,
+                exact_ref=ctx.calib_exact_ref,
             )
         else:
             y = _approx_branch(x, w, site, backend, ctx)

@@ -78,9 +78,13 @@ def fit_error_stats(y_fast, resid, degree: int) -> CalibSite:
     V = _basis(t, degree)  # [N, P]
     eye = torch.eye(degree + 1, dtype=torch.float32, device=y.device)
     G = V.T @ V + RIDGE * eye
-    c_mean = torch.linalg.solve(G, V.T @ r)
+    # a singular system (at 8192 points the ridge is below float32's
+    # resolution: a site whose outputs take three values makes t and t**3
+    # one column) gives NaN coefficients, as jnp.linalg.solve does, and
+    # raises nothing (nor waits on the device to check)
+    c_mean = torch.linalg.solve_ex(G, V.T @ r, check_errors=False).result
     r2 = torch.square(r - V @ c_mean)
-    c_var = torch.linalg.solve(G, V.T @ r2)
+    c_var = torch.linalg.solve_ex(G, V.T @ r2, check_errors=False).result
     return {"mean": c_mean, "var": c_var, "scale": scale}
 
 

@@ -1,7 +1,8 @@
 """The training-time forward paths of an approximate projection (port of
 ``repro.core.injection``: ``model_mode_matmul``, ``fused_model_mode_matmul``,
 ``fast_forward``, ``inject_mode_matmul``, ``proxy_only_matmul`` and
-``calibrate_matmul``; the gated approximate-backward variants come later).
+``calibrate_matmul`` with a chip and the exact-reference fit; the gated
+approximate-backward variants come later).
 
 * MODEL mode  — bit-accurate emulated forward, proxy-activation backward
   (paper Sec. 3.1): a ``torch.autograd.Function`` whose backward is the
@@ -23,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import ApproxConfig, Backend
 from repro_torch.core import calibration, registry
+from repro_torch.hw.variation import apply_chip
 
 
 class _ModelModeMatmul(torch.autograd.Function):
@@ -125,21 +127,24 @@ def calibrate_matmul(
     accurate calibration batches) and the error statistics of its residual
     against the fast forward, at the degree of the site's backend.
 
-    The reference's ``chip`` (a device instance's perturbation) and
-    ``exact_ref`` (the serving-side correction fit) come with the chip
-    model and raise here."""
-    del site
-    if chip is not None or exact_ref:
-        raise NotImplementedError(
-            "calibrate_matmul's chip and exact_ref are not yet ported to repro_torch"
-        )
+    ``chip`` (a :class:`repro_torch.hw.variation.ChipProfile`) perturbs the
+    emulated output as that device would, so the stats describe the chip.
+    ``exact_ref`` fits the residual against the exact ``x @ w`` instead,
+    conditioned on the emulated output, at degree ``max(degree, 1)``: the
+    serving-side correction, ``y - predict_mean(stats, y)``."""
     backend = backend if backend is not None else cfg.backend
     spec = registry.get(backend)
     params = cfg.params_for(backend)
+    name = backend.value if isinstance(backend, Backend) else str(backend)
     with torch.no_grad():
         y_acc = spec.emulate(x.contiguous(), w.contiguous(), params, rng)
+        y_acc = apply_chip(y_acc, site, name, chip)
         degree = calibration.effective_degree(cfg, backend)
-        y_fast = spec.fast(x, w, params)
-        resid = (y_acc - y_fast).to(torch.float32)
-        fitted = calibration.fit_error_stats(y_fast, resid, degree)
+        if exact_ref:
+            resid = y_acc.to(torch.float32) - (x @ w).to(torch.float32)
+            fitted = calibration.fit_error_stats(y_acc, resid, max(degree, 1))
+        else:
+            y_fast = spec.fast(x, w, params)
+            resid = (y_acc - y_fast).to(torch.float32)
+            fitted = calibration.fit_error_stats(y_fast, resid, degree)
     return y_acc, fitted

@@ -40,19 +40,20 @@ SIGNATURES = {
         "vpu_slot_words": (_I, _I, _I, _I, _I),
         # mul, M, N, K, bits, drop_bits -> split planes of int32 sums
         "vpu_plane_count": (_I, _I, _I, _I, _I, _I),
-        # mul, in_bf16, out_bf16, x, w, pre, gain, add, coeffs, P,
-        # mean_scale, eps, acc, out, M, N, K, drop_bits, stream
+        # mul, in_bf16, out_bf16, x, w, pre, gain, add, coeffs (P of them,
+        # then the correction's scale), P, eps, acc, out, M, N, K, drop_bits,
+        # stream
         "vpu_matmul_fused": (
-            _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F, _F, _P, _P,
+            _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F, _P, _P,
             _I, _I, _I, _I, _P,
         ),
         # M -> words of vpu_quantize_matmul_fused's scales buffer
         "vpu_scales_words": (_I,),
         # mul, in_bf16, out_bf16, x, w, hold, scales, aslots, bits, lev,
-        # lev2, eps_in, gain, add, coeffs, P, mean_scale, eps, acc, out, M,
-        # N, K, drop_bits, stream
+        # lev2, eps_in, gain, add, coeffs, P, eps, acc, out, M, N, K,
+        # drop_bits, stream
         "vpu_quantize_matmul_fused": (
-            _I, _I, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F, _P, _P, _P, _I, _F, _F,
+            _I, _I, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F, _P, _P, _P, _I, _F,
             _P, _P, _I, _I, _I, _I, _P,
         ),
     },
@@ -77,9 +78,9 @@ SIGNATURES = {
             _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P,
         ),
         # in_bf16, out_bf16, x, wp, wn, tab, acc_p, acc_n, pre, gain, add,
-        # coeffs, P, mean_scale, eps, out, M, N, K, bits, stream
+        # coeffs, P, eps, out, M, N, K, bits, stream
         "sc_matmul_fused": (
-            _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _P,
+            _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P,
             _I, _I, _I, _I, _P,
         ),
     },
@@ -97,9 +98,9 @@ SIGNATURES = {
         # in_bf16, x, wa, wb, q, out, M, N, K, array_size, adc_bits, adc_range, stream
         "analog_matmul": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
         # in_bf16, out_bf16, x, wp, wn, scratch, pre, gain, add, coeffs, P,
-        # mean_scale, eps, out, M, N, K, array_size, adc_bits, adc_range, stream
+        # eps, out, M, N, K, array_size, adc_bits, adc_range, stream
         "analog_matmul_fused": (
-            _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _P,
+            _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P,
             _I, _I, _I, _I, _I, _F, _P,
         ),
     },

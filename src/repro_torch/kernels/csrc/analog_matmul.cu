@@ -542,7 +542,7 @@ void run_fused(const void* x, const void* wp, const void* wn, unsigned char* scr
 template <typename T, typename Code>
 __global__ void __launch_bounds__(128)
     finish_sums(const Code* __restrict__ q, Adc adc, const float* __restrict__ pre,
-                const float* __restrict__ coeffs, int P, float mean_scale, T* __restrict__ out,
+                const float* __restrict__ coeffs, int P, T* __restrict__ out,
                 int M, int N, int C) {
   constexpr int TB = 128, CC = 64 / sizeof(Code);  // outputs, arrays per chunk
   __shared__ __align__(16) Code codes[2][CC][TB];
@@ -579,7 +579,7 @@ __global__ void __launch_bounds__(128)
   const size_t i = i0 + tid;
   if (i < MN) {
     float y = repro_epi::rnd<T>(__fmul_rn(__fsub_rn(sp, sn), pre[i / N]));
-    if (P > 0) y = repro_epi::correct<T>(y, coeffs, P, mean_scale);
+    if (P > 0) y = repro_epi::correct<T>(y, coeffs, P);
     repro_epi::store<T>(out, i, y);
   }
 }
@@ -606,21 +606,21 @@ struct ArraySums {
 
 template <typename T, typename Code>
 void finish_fused(const Code* q, const float* pre, const void* gain, const void* add,
-                  const float* coeffs, int P, float mean_scale, float eps, void* out, int M,
+                  const float* coeffs, int P, float eps, void* out, int M,
                   int N, int C, Adc adc, cudaStream_t st) {
   const size_t MN = (size_t)M * N;
   if (add == nullptr)
     finish_sums<T, Code><<<(unsigned)((MN + 127) / 128), 128, 0, st>>>(
-        q, adc, pre, coeffs, P, mean_scale, static_cast<T*>(out), M, N, C);
+        q, adc, pre, coeffs, P, static_cast<T*>(out), M, N, C);
   else
     repro_epi::finish<T>(ArraySums<T, Code>{q, pre, MN, C, adc}, gain, add, coeffs, P,
-                         mean_scale, eps, out, M, N, st);
+                         eps, out, M, N, st);
 }
 
 template <typename Code>
 void fused(int in_bf16, int out_bf16, const void* x, const void* wp, const void* wn,
            unsigned char* scratch, const float* pre, const void* gain, const void* add,
-           const float* coeffs, int P, float mean_scale, float eps, void* out, int M, int N,
+           const float* coeffs, int P, float eps, void* out, int M, int N,
            int K, int A, Adc adc, cudaStream_t st) {
   if (in_bf16)
     run_fused<__nv_bfloat16, Code>(x, wp, wn, scratch, M, N, K, A, adc, st);
@@ -629,10 +629,10 @@ void fused(int in_bf16, int out_bf16, const void* x, const void* wp, const void*
   const Code* q = reinterpret_cast<const Code*>(scratch);
   const int C = (2 * K + A - 1) / A;
   if (out_bf16)
-    finish_fused<__nv_bfloat16, Code>(q, pre, gain, add, coeffs, P, mean_scale, eps, out, M, N,
+    finish_fused<__nv_bfloat16, Code>(q, pre, gain, add, coeffs, P, eps, out, M, N,
                                       C, adc, st);
   else
-    finish_fused<float, Code>(q, pre, gain, add, coeffs, P, mean_scale, eps, out, M, N, C, adc,
+    finish_fused<float, Code>(q, pre, gain, add, coeffs, P, eps, out, M, N, C, adc,
                               st);
 }
 
@@ -1103,16 +1103,16 @@ extern "C" int analog_fused_scratch_bytes(int M, int N, int K, int array_size, i
 extern "C" int analog_matmul_fused(int in_bf16, int out_bf16, const void* x, const void* wp,
                                    const void* wn, void* scratch, const float* pre,
                                    const void* gain, const void* add, const float* coeffs, int P,
-                                   float mean_scale, float eps, void* out, int M, int N, int K,
+                                   float eps, void* out, int M, int N, int K,
                                    int array_size, int adc_bits, float adc_range, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Adc adc = make_adc(adc_bits, adc_range);
   unsigned char* s = static_cast<unsigned char*>(scratch);
   if (adc_bits <= 8)
-    fused<uint8_t>(in_bf16, out_bf16, x, wp, wn, s, pre, gain, add, coeffs, P, mean_scale, eps,
+    fused<uint8_t>(in_bf16, out_bf16, x, wp, wn, s, pre, gain, add, coeffs, P, eps,
                    out, M, N, K, array_size, adc, st);
   else
-    fused<uint32_t>(in_bf16, out_bf16, x, wp, wn, s, pre, gain, add, coeffs, P, mean_scale, eps,
+    fused<uint32_t>(in_bf16, out_bf16, x, wp, wn, s, pre, gain, add, coeffs, P, eps,
                     out, M, N, K, array_size, adc, st);
   return (int)cudaGetLastError();
 }

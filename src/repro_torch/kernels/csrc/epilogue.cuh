@@ -67,11 +67,12 @@ __device__ __forceinline__ float eval_poly(const float* c, int P, float t) {
   return out;
 }
 
-// y - eval_poly(coeffs, y / mean_scale), with the polynomial rounded to T
-// before the subtraction.
+// y - eval_poly(c, y / c[P]), with the polynomial rounded to T before the
+// subtraction: c holds the P coefficients, then the fitted scale (a device
+// operand, so a caller never reads it back to the host).
 template <typename T>
-__device__ __forceinline__ float correct(float y, const float* c, int P, float mean_scale) {
-  const float t = __fdiv_rn(y, mean_scale);
+__device__ __forceinline__ float correct(float y, const float* c, int P) {
+  const float t = __fdiv_rn(y, c[P]);
   return rnd<T>(__fsub_rn(y, rnd<T>(eval_poly(c, P, t))));
 }
 
@@ -117,13 +118,13 @@ __device__ __forceinline__ void release(const V& val, size_t i) {
 // Epilogue without chip terms: elementwise.
 template <typename T, typename V>
 __global__ void finish_elementwise(V val, const float* __restrict__ coeffs, int P,
-                                   float mean_scale, T* __restrict__ out, int M, int N) {
+                                   T* __restrict__ out, int M, int N) {
   const size_t n = (size_t)M * N;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
     float y = val(i, (int)(i / N));
     release(val, i);
-    if (P > 0) y = correct<T>(y, coeffs, P, mean_scale);
+    if (P > 0) y = correct<T>(y, coeffs, P);
     store<T>(out, i, y);
   }
 }
@@ -132,7 +133,7 @@ __global__ void finish_elementwise(V val, const float* __restrict__ coeffs, int 
 // order-free, so the row scale is the same bits as the plain version's).
 template <typename T, typename V>
 __global__ void finish_rows(V val, const T* __restrict__ gain, const T* __restrict__ add,
-                            const float* __restrict__ coeffs, int P, float mean_scale, float eps,
+                            const float* __restrict__ coeffs, int P, float eps,
                             T* __restrict__ out, int N) {
   __shared__ float red[32];
   const int m = blockIdx.x;
@@ -154,7 +155,7 @@ __global__ void finish_rows(V val, const T* __restrict__ gain, const T* __restri
     float y = val(row + n, m);
     release(val, row + n);
     y = chip<T>(y, has_gain, has_gain ? load<T>(gain, n) : 0.0f, load<T>(add, n), scale);
-    if (P > 0) y = correct<T>(y, coeffs, P, mean_scale);
+    if (P > 0) y = correct<T>(y, coeffs, P);
     store<T>(out, row + n, y);
   }
 }
@@ -163,14 +164,14 @@ __global__ void finish_rows(V val, const T* __restrict__ gain, const T* __restri
 // fault family), then the correction polynomial when P > 0.
 template <typename T, typename V>
 void finish(V val, const void* gain, const void* add, const float* coeffs, int P,
-            float mean_scale, float eps, void* out, int M, int N, cudaStream_t st) {
+            float eps, void* out, int M, int N, cudaStream_t st) {
   T* o = static_cast<T*>(out);
   if (add == nullptr) {
     finish_elementwise<T><<<grid_for((size_t)M * N, 256), 256, 0, st>>>(val, coeffs, P,
-                                                                        mean_scale, o, M, N);
+                                                                        o, M, N);
   } else {
     finish_rows<T><<<M, 512, 0, st>>>(val, static_cast<const T*>(gain),
-                                      static_cast<const T*>(add), coeffs, P, mean_scale, eps, o,
+                                      static_cast<const T*>(add), coeffs, P, eps, o,
                                       N);
   }
 }

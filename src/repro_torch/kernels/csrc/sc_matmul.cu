@@ -1230,7 +1230,7 @@ extern "C" int sc_matmul(int in_bf16, const void* x, const void* wa, const void*
     run_k4<K4_PLANES, float>(a, st);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;  // not launched: the accumulators are untouched
-  repro_epi::finish<float>(PlaneCount{acc, W, (float)bits}, nullptr, nullptr, nullptr, 0, 0.0f,
+  repro_epi::finish<float>(PlaneCount{acc, W, (float)bits}, nullptr, nullptr, nullptr, 0,
                            0.0f, out, M, N, st);
   return (int)cudaGetLastError();
 }
@@ -1247,7 +1247,7 @@ extern "C" int sc_matmul_words(const uint32_t* xbits, const uint32_t* wbits, uin
   k4_rows<K4_WORDS, float, false>(a, st);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  repro_epi::finish<float>(PlaneCount{acc, W, (float)bits}, nullptr, nullptr, nullptr, 0, 0.0f,
+  repro_epi::finish<float>(PlaneCount{acc, W, (float)bits}, nullptr, nullptr, nullptr, 0,
                            0.0f, out, M, N, st);
   return (int)cudaGetLastError();
 }
@@ -1282,10 +1282,10 @@ extern "C" int sc_matmul_quantized(int in_bf16, const void* x, const void* w,
   if (in_bf16)
     repro_epi::finish<__nv_bfloat16>(
         PrefillDifference<__nv_bfloat16>{acc_p, acc_n, W, (float)bits, scales}, nullptr,
-        nullptr, nullptr, 0, 0.0f, 0.0f, out, M, N, st);
+        nullptr, nullptr, 0, 0.0f, out, M, N, st);
   else
     repro_epi::finish<float>(PrefillDifference<float>{acc_p, acc_n, W, (float)bits, scales},
-                             nullptr, nullptr, nullptr, 0, 0.0f, 0.0f, out, M, N, st);
+                             nullptr, nullptr, nullptr, 0, 0.0f, out, M, N, st);
   return (int)cudaGetLastError();
 }
 
@@ -1298,9 +1298,8 @@ extern "C" int sc_matmul_quantized(int in_bf16, const void* x, const void* w,
 extern "C" int sc_matmul_fused(int in_bf16, int out_bf16, const void* x, const void* wp,
                                const void* wn, const uint32_t* tab, uint32_t* acc_p,
                                uint32_t* acc_n, const float* pre, const void* gain,
-                               const void* add, const float* coeffs, int P, float mean_scale,
-                               float eps, void* out, int M, int N, int K, int bits,
-                               void* stream) {
+                               const void* add, const float* coeffs, int P, float eps,
+                               void* out, int M, int N, int K, int bits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int W = bits / 32;
   if (in_bf16)
@@ -1312,10 +1311,10 @@ extern "C" int sc_matmul_fused(int in_bf16, int out_bf16, const void* x, const v
   if (out_bf16)
     repro_epi::finish<__nv_bfloat16>(
         PlaneDifference<__nv_bfloat16>{acc_p, acc_n, W, (float)bits, pre}, gain, add, coeffs, P,
-        mean_scale, eps, out, M, N, st);
+        eps, out, M, N, st);
   else
     repro_epi::finish<float>(PlaneDifference<float>{acc_p, acc_n, W, (float)bits, pre}, gain,
-                             add, coeffs, P, mean_scale, eps, out, M, N, st);
+                             add, coeffs, P, eps, out, M, N, st);
   return (int)cudaGetLastError();
 }
 

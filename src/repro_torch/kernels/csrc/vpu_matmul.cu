@@ -1298,14 +1298,14 @@ struct ScaledSum {
 
 template <typename Sum>
 void finish_dispatch(int out_bf16, Sum sum, const float* pre, const void* gain, const void* add,
-                     const float* coeffs, int P, float mean_scale, float eps, void* out, int M,
+                     const float* coeffs, int P, float eps, void* out, int M,
                      int N, cudaStream_t st) {
   if (out_bf16)
     repro_epi::finish<__nv_bfloat16>(ScaledSum<__nv_bfloat16, Sum>{sum, pre}, gain, add, coeffs,
-                                     P, mean_scale, eps, out, M, N, st);
+                                     P, eps, out, M, N, st);
   else
-    repro_epi::finish<float>(ScaledSum<float, Sum>{sum, pre}, gain, add, coeffs, P, mean_scale,
-                             eps, out, M, N, st);
+    repro_epi::finish<float>(ScaledSum<float, Sum>{sum, pre}, gain, add, coeffs, P, eps,
+                             out, M, N, st);
 }
 
 // Split planes a prefill contraction writes for these arguments (0 for the
@@ -1376,13 +1376,13 @@ extern "C" int vpu_plane_count(int mul, int M, int N, int K, int bits, int drop_
 // launches.
 extern "C" int vpu_matmul_fused(int mul, int in_bf16, int out_bf16, const void* x, const void* w,
                                 const float* pre, const void* gain, const void* add,
-                                const float* coeffs, int P, float mean_scale, float eps, int* acc,
+                                const float* coeffs, int P, float eps, int* acc,
                                 void* out, int M, int N, int K, int drop_bits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   decode_dispatch<false>(mul, in_bf16, x, w, nullptr, acc, M, N, K, drop_bits, 0.0f, st);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;  // not launched: the accumulators are untouched
-  finish_dispatch(out_bf16, ClearedSum{acc}, pre, gain, add, coeffs, P, mean_scale, eps, out, M,
+  finish_dispatch(out_bf16, ClearedSum{acc}, pre, gain, add, coeffs, P, eps, out, M,
                   N, st);
   return (int)cudaGetLastError();
 }
@@ -1402,7 +1402,7 @@ extern "C" int vpu_quantize_matmul_fused(int mul, int in_bf16, int out_bf16, con
                                          const void* w, unsigned* hold, float* scales,
                                          void* aslots, int bits, float lev, float lev2,
                                          float eps_in, const void* gain, const void* add,
-                                         const float* coeffs, int P, float mean_scale, float eps,
+                                         const float* coeffs, int P, float eps,
                                          int* acc, void* out, int M, int N, int K, int drop_bits,
                                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1420,9 +1420,9 @@ extern "C" int vpu_quantize_matmul_fused(int mul, int in_bf16, int out_bf16, con
   const int planes = plane_count(mul, M, N, K, bits, drop_bits);
   if (planes)
     finish_dispatch(out_bf16, PlaneSum{acc, planes, (size_t)M * N}, pre, gain, add, coeffs, P,
-                    mean_scale, eps, out, M, N, st);
+                    eps, out, M, N, st);
   else
-    finish_dispatch(out_bf16, ClearedSum{acc}, pre, gain, add, coeffs, P, mean_scale, eps, out,
+    finish_dispatch(out_bf16, ClearedSum{acc}, pre, gain, add, coeffs, P, eps, out,
                     M, N, st);
   return (int)cudaGetLastError();
 }

@@ -42,8 +42,10 @@ def eval_poly(coeffs, t):
 
 
 def row_abs_scale(y, eps: float = ROW_EPS):
-    """Per-token activation scale: max(|y|) over the last axis, floored."""
-    m = torch.amax(torch.abs(y), dim=-1, keepdim=True)
+    """Per-token activation scale: max(|y|) over the last axis, floored,
+    and detached (the reference's ``stop_gradient``): the chip's additive
+    terms ride on it and steer no gradient."""
+    m = torch.amax(torch.abs(y.detach()), dim=-1, keepdim=True)
     return torch.maximum(m, torch.tensor(eps, dtype=y.dtype, device=y.device))
 
 

@@ -24,7 +24,8 @@ off:
 
 Every value is a pure function of the key and the index, so the CPU and
 the card give the same numbers (the normals to the last bit of
-``log1p``, which each device's math library rounds).  The plain version carries uint32
+``log1p``: the CPU's are XLA:CPU's, bitwise ``jax.random.normal`` on the
+CPU, the card's its math library's).  The plain version carries uint32
 arithmetic in int64 tensors (or Python ints for keys).
 """
 from __future__ import annotations
@@ -95,6 +96,27 @@ def uniform(key: Key, shape, device="cpu") -> torch.Tensor:
     return (mant.to(torch.int32).view(torch.float32) - 1.0).reshape(tuple(shape))
 
 
+def randint(key: Key, shape, minval: int, maxval: int, device="cpu") -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32): two bit
+    streams, from ``split(key)``'s keys, reduced into ``[minval, maxval)``
+    as JAX does, ``(hi % span * m + lo % span) % span`` with ``m = 2**32 %
+    span`` and every product wrapping at 32 bits."""
+    lo_i32, hi_i32 = -(2**31), 2**31 - 1
+    minval = min(max(int(minval), lo_i32), hi_i32)
+    maxval = min(max(int(maxval), lo_i32), hi_i32)
+    n = 1
+    for s in shape:
+        n *= int(s)
+    k1, k2 = split(key)
+    higher, lower = _bits(k1, n, device), _bits(k2, n, device)
+    span = 1 if maxval <= minval else (maxval - minval) & MASK
+    mult = (2**16 % span) ** 2 % (2**32) % span  # the square wraps at 32 bits
+    offset = (((higher % span) * mult) & MASK) + lower % span
+    offset = (offset & MASK) % span
+    out = (minval + offset + 2**31) % 2**32 - 2**31  # wraps into int32
+    return out.to(torch.int32).reshape(tuple(shape))
+
+
 def _bits(key: Key, n: int, device):
     """The 32 random bits of elements 0..n-1 (``b0 ^ b1``), in int64."""
     i = torch.arange(n, dtype=torch.int64, device=device)
@@ -112,15 +134,69 @@ NORMAL_LO = -0.99999994  # float32 nextafter(-1, 0)
 SQRT2 = 1.4142135381698608  # float32 sqrt(2)
 
 
+def _fma(a, b, c):
+    """``a * b + c`` of float32 tensors as one fused multiply-add: taken in
+    float64, where the product of two floats is exact, and rounded once."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+# XLA:CPU's float32 log1p, as it compiles it: Cephes' rational form for
+# |x| < sqrt(2) - 1, else Cephes' logf of 1 + x; LLVM contracts each
+# multiply feeding an add into a fused multiply-add
+LOG1P_SMALL = 0.41421356  # float32 sqrt(2) - 1
+LOG1P_DEN = (15.062909, 83.04757, 221.7624, 309.09872, 216.42789, 60.11866)
+LOG1P_NUM = (4.5270000e-05, 0.49854103, 6.5787325, 29.911919, 60.949668, 57.112963, 20.039553)
+LOGF_SQRTHF = 0.70710677
+LOGF_P = ((0.070376836, -0.1151461, 0.116769984), (-0.12420141, 0.14249323, -0.16668057),
+          (0.20000714, -0.24999994, 0.3333333))
+LOGF_Q1, LOGF_Q2 = -2.1219444e-4, 0.693359375
+FLT_MIN = 1.1754944e-38
+
+
+def xla_log1p(x):
+    """``jax.numpy.log1p`` of a float32 tensor as XLA:CPU computes it,
+    bitwise for normal floats (XLA flushes subnormal inputs to zero)."""
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=x.device)
+    den = torch.ones_like(x)
+    for c in LOG1P_DEN:
+        den = _fma(den, x, f32(c))
+    num = torch.full_like(x, LOG1P_NUM[0])
+    for c in LOG1P_NUM[1:]:
+        num = _fma(num, x, f32(c))
+    x2 = x * x
+    small = x + _fma(x2, f32(-0.5), (x * x2) * (num / den))
+    v = x + 1.0
+    bits = torch.maximum(v, f32(FLT_MIN)).view(torch.int32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)  # in [0.5, 1)
+    lt = m < f32(LOGF_SQRTHF)
+    z = (m - 1.0) + torch.where(lt, m, f32(0.0))
+    e = e - lt.to(torch.float32)
+    z2 = z * z
+    z3 = z2 * z
+    a, b, c = (_fma(_fma(z, f32(p0), f32(p1)), z, f32(p2)) for p0, p1, p2 in LOGF_P)
+    t = _fma(_fma(_fma(a, z3, b), z3, c), z3, e * f32(LOGF_Q1))
+    large = _fma(e, f32(LOGF_Q2), _fma(-z2, f32(0.5), z) + t)
+    large = torch.where(v <= 0, f32(float("nan")), large)
+    large = torch.where(v == 0, f32(float("-inf")), large)
+    large = torch.where(v == float("inf"), v, large)
+    return torch.where(torch.abs(x) < f32(LOG1P_SMALL), small, large)
+
+
 def erfinv(x):
     """XLA's float32 ``erf_inv`` on a float32 tensor.  The polynomial's
     steps are fused multiply-adds, as XLA contracts them: ``c + p * w`` is
     taken in float64 (where ``p * w`` of two floats is exact) and rounded
-    once to float32."""
+    once to float32.  Its ``log1p`` is XLA:CPU's on the CPU
+    (:func:`xla_log1p`), so the CPU's draws are JAX's to the bit, and the
+    device's own ``log1p`` elsewhere, as the card's kernel computes it."""
     f32 = dict(dtype=torch.float32, device=x.device)
-    w = -torch.log1p(-(x * x))
+    cpu = x.device.type == "cpu"
+    w = -(xla_log1p if cpu else torch.log1p)(-(x * x))
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    # the CPU's float32 torch.sqrt is not correctly rounded; float64's is
+    sqrt = torch.sqrt(w.double()).float() if cpu else torch.sqrt(w)
+    w = torch.where(lt, w - 2.5, sqrt - 3.0)
     wd = w.double()
     coef = lambda i: torch.where(lt, torch.tensor(ERFINV_LT5[i], **f32),
                                  torch.tensor(ERFINV_GE5[i], **f32))

@@ -136,16 +136,15 @@ class EpilogueOperands:
     pre: Optional[torch.Tensor]
     gain: Optional[torch.Tensor]
     add: Optional[torch.Tensor]
-    coeffs: Optional[torch.Tensor]
+    coeffs: Optional[torch.Tensor]  # the P coefficients, then the scale
     P: int
-    mean_scale: float
     eps: float
 
     def pointers(self) -> tuple:
-        """``pre, gain, add, coeffs, P, mean_scale, eps`` (NULL for absent)."""
+        """``pre, gain, add, coeffs, P, eps`` (NULL for absent)."""
         ptr = lambda t: None if t is None else t.data_ptr()
-        return (ptr(self.pre), ptr(self.gain), ptr(self.add), ptr(self.coeffs),
-                self.P, self.mean_scale, self.eps)
+        return (ptr(self.pre), ptr(self.gain), ptr(self.add), ptr(self.coeffs), self.P,
+                self.eps)
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,16 +168,19 @@ def epilogue_operands(M: int, N: int, prescale, epi: Dict, out_dtype, dev) -> Ep
         if pre.numel() != M:
             raise ValueError(f"prescale must have M={M} entries; got {pre.numel()}")
     coeffs = epi.get("mean_coeffs")
-    P, mean_scale = 0, 1.0
+    P = 0
     if coeffs is not None:
-        coeffs = torch.as_tensor(coeffs, dtype=torch.float32, device=dev).reshape(-1).contiguous()
+        # the scale rides after the coefficients, on the device: the kernel
+        # reads it there, so a call never waits to read it back
+        coeffs = torch.as_tensor(coeffs, dtype=torch.float32, device=dev).reshape(-1)
         P = coeffs.numel()
-        mean_scale = float(torch.as_tensor(epi["mean_scale"], dtype=torch.float32))
+        scale = torch.as_tensor(epi["mean_scale"], dtype=torch.float32, device=dev)
+        coeffs = torch.cat([coeffs, scale.reshape(1)])
     return EpilogueOperands(
         pre=pre,
         gain=_row_operand(epi.get("colgain"), N, out_dtype, dev),
         add=_row_operand(epi.get("coladd"), N, out_dtype, dev),
-        coeffs=coeffs, P=P, mean_scale=mean_scale,
+        coeffs=coeffs, P=P,
         eps=_in_dtype(ROW_EPS, out_dtype),  # eps as the epilogue's dtype holds it
     )
 

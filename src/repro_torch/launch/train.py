@@ -10,11 +10,18 @@ on the card:
       --backend analog --phase exact:2 \\
       --phase inject:7:calib=adaptive,drift=0.05 --phase model:2:lr=0.5
 
-``--device`` defaults to ``cuda`` and raises where there is no card.  The
-reference's ``--fleet``, ``--variation-scale``, ``--fleet-seed``,
-``--backward``, ``--gate-frac`` and ``--optim-compress`` wait for chip
-fleets (ROADMAP A3) and the approximate backward and compressed
-optimizer (A6).
+Variation-aware training, each step against a chip of a sampled fleet:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b --smoke \
+      --device cpu --backend analog --phase inject:6:calib=adaptive \
+      --phase model:2 --fleet 2 --variation-scale 2
+
+``--device`` defaults to ``cuda`` and raises where there is no card.
+``--fleet N`` makes every phase that touches the hardware (all but exact
+ones, and those that set their own ``fleet=``) train against a fleet of N
+chips, sigmas times ``--variation-scale``, sampled from ``--fleet-seed``
+(default ``--seed`` + 7919).  The reference's ``--backward``,
+``--gate-frac`` and ``--optim-compress`` wait for the approximate
+backward and compressed optimizer (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -28,12 +35,14 @@ from repro_torch.configs.base import (
     AnalogParams,
     ApproxConfig,
     Backend,
+    Phase,
     TrainConfig,
     TrainMode,
     parse_phase_specs,
     parse_site_backends,
 )
 from repro_torch.data import SyntheticLM
+from repro_torch.hw import VariationModel
 from repro_torch.models import build_model
 from repro_torch.models.transformer import ALL_SITES
 from repro_torch.runtime.trainer import Trainer
@@ -56,6 +65,14 @@ def main(argv=None) -> None:
                          "(off|every_n|adaptive|N), every, drift, lr, micro "
                          "— e.g. --phase inject:80:calib=adaptive,drift=0.05. "
                          "Overrides --inject-steps/--finetune-steps.")
+    ap.add_argument("--fleet", type=int, default=0,
+                    help="variation-aware training: round-robin a sampled device "
+                         "instance per step over a fleet of N chips (every non-exact "
+                         "phase; per phase: --phase ...:fleet=N)")
+    ap.add_argument("--variation-scale", type=float, default=1.0,
+                    help="multiplier on every chip-variation sigma")
+    ap.add_argument("--fleet-seed", type=int, default=None,
+                    help="chip-sampling seed (default: --seed + 7919)")
     ap.add_argument("--inject-steps", type=int, default=80)
     ap.add_argument("--finetune-steps", type=int, default=20)
     ap.add_argument("--steps", type=int, default=None, help="total (exact mode)")
@@ -97,6 +114,12 @@ def main(argv=None) -> None:
         phases = parse_phase_specs(args.phase)
     except ValueError as e:
         ap.error(str(e))
+    if args.fleet:
+        # every phase that touches the hardware trains against the fleet
+        # (phases with their own fleet= keep it)
+        phases = tuple(dataclasses.replace(p, fleet=args.fleet)
+                       if p.mode != TrainMode.NO_MODEL and not p.fleet else p
+                       for p in phases)
     if phases:
         if args.steps is not None:
             ap.error("--steps conflicts with --phase: the total is the sum "
@@ -107,6 +130,22 @@ def main(argv=None) -> None:
             total_steps=total,
             warmup_steps=max(total // 20, 1),
             phases=phases,
+            checkpoint_every=max(total // 4, 1),
+        )
+    elif args.fleet and approx.approx_backends:
+        # the legacy two-phase split, made variation-aware: the fleet rides
+        # on explicit phases
+        total = args.steps or (args.inject_steps + args.finetune_steps)
+        legacy = []
+        if args.inject_steps:
+            legacy.append(Phase.inject(args.inject_steps, fleet=args.fleet))
+        if args.finetune_steps:
+            legacy.append(Phase.model(args.finetune_steps, fleet=args.fleet))
+        tcfg = TrainConfig(
+            learning_rate=args.lr,
+            total_steps=total,
+            warmup_steps=max(total // 20, 1),
+            phases=tuple(legacy),
             checkpoint_every=max(total // 4, 1),
         )
     else:
@@ -123,6 +162,7 @@ def main(argv=None) -> None:
     trainer = Trainer(
         model, approx, tcfg, data, args.ckpt_dir,
         seed=args.seed, log_every=args.log_every, device=args.device,
+        variation=VariationModel(scale=args.variation_scale), fleet_seed=args.fleet_seed,
     )
     report = trainer.run(total)
     summary = {

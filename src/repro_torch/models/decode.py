@@ -17,7 +17,12 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ApproxConfig, ModelConfig
 from repro_torch.core.approx_linear import dense
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import Transformer, check_dense, apply_model
+from repro_torch.models.transformer import (
+    Transformer,
+    apply_model,
+    check_dense,
+    layer_calibration,
+)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> Dict[str, Any]:
@@ -46,22 +51,31 @@ def serve_step(
     cfg: ModelConfig,
     *,
     ctx=None,
+    calib=None,
     flash: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """tokens: [B, 1] int; pos: int (index being written) or [B] int32
     per-row positions.  ``ctx`` (an ``ApproxCtx`` in MODEL mode) serves
     bit-accurate emulated logits; its key path serves every layer and the
     LM head alike (decode keeps one key per step, as in the reference).
+    ``calib`` (a calibration tree, laid out as ``init_calibration``) gives
+    each layer and the head its sites: with ``ctx.correct`` the fitted mean
+    error is subtracted, how the engine serves a recalibrated chip.  Every
+    layer's ctx shares the step's memo, so each site still draws and builds
+    its SC tables, and recombines the chip's terms, once a step.
     ``flash`` takes the decode attention kernel.  Returns (logits
     [B, vocab], cache updated in place)."""
     check_dense(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
+    threaded = ctx is not None and calib is not None
     x = params.embed[tokens].to(dtype)  # [B, 1, D]
     for l, p in enumerate(params.layers):
-        x = _attn_decode_block(x, p, cfg, ctx, cache["k"][l], cache["v"][l], pos, flash)
+        lctx = ctx.with_calib(layer_calibration(calib, l)) if threaded else ctx
+        x = _attn_decode_block(x, p, cfg, lctx, cache["k"][l], cache["v"][l], pos, flash)
     x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
     w = params.embed.T if cfg.tie_embeddings else params.lm_head
-    logits = dense(x[:, 0], w.to(dtype), site="lm_head", ctx=ctx)
+    hctx = ctx.with_calib(calib["head"]) if threaded else ctx
+    logits = dense(x[:, 0], w.to(dtype), site="lm_head", ctx=hctx)
     if logits.shape[-1] != cfg.vocab_size:  # drop vocab-padding columns
         logits = logits[..., : cfg.vocab_size]
     return logits, cache
@@ -111,6 +125,9 @@ def prefill(
     chunk_q: int = 1024,
     rng=None,
     draws=None,
+    calib=None,
+    chip=None,
+    correct: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Bulk prefill: one full-sequence forward over ``tokens [B, L]``.
 
@@ -118,8 +135,10 @@ def prefill(
     rows; the returned logits are taken at ``lengths - 1``.  Returns
     ``(last_logits [B, vocab], cache)``, the cache padded to ``max_seq``
     when given.  ``approx`` with ``mode=MODEL`` prefills with bit-accurate
-    emulation (composed path, as in the reference); ``rng`` and ``draws``
-    go to :func:`repro_torch.models.transformer.apply_model`.
+    emulation (composed path, as in the reference); ``rng``, ``draws``,
+    ``calib``, ``chip`` and ``correct`` go to
+    :func:`repro_torch.models.transformer.apply_model`: a chip-bound lane
+    prefills on its chip, with its correction.
     """
     B, T = tokens.shape
     if lengths is None:
@@ -128,7 +147,8 @@ def prefill(
     out = apply_model(
         params, {"tokens": tokens}, cfg,
         approx=approx if approx is not None else ApproxConfig(),
-        chunk_q=chunk_q, return_cache=True, rng=rng, draws=draws,
+        chunk_q=chunk_q, return_cache=True, rng=rng, draws=draws, calib=calib, chip=chip,
+        correct=correct,
     )
     last = out.logits[torch.arange(B, device=tokens.device), lengths - 1]
     cache = out.cache

@@ -1,7 +1,8 @@
 """Decoder-LM assembly, DENSE family (port of ``repro.models.transformer``:
 ``padded_vocab``, ``init_params``, ``init_calibration``,
 ``_attn_block_apply``, ``_embed``, ``_lm_head`` and ``apply_model`` with
-``return_cache``, ``calib``, ``collect`` and ``remat``).
+``return_cache``, ``calib``, ``collect``, ``remat``, ``chip``, ``correct``
+and ``calib_exact_ref``).
 
 The parameters are an ``nn.Module`` tree (:class:`Transformer`); a Python
 loop over ``layers`` takes the place of the reference's ``lax.scan``.
@@ -116,7 +117,7 @@ def init_calibration(cfg: ModelConfig, approx: ApproxConfig, device="cpu") -> Di
     return {"layers": layers, "head": head}
 
 
-def _layer_calibration(calib: Dict[str, Any], l: int) -> Dict[str, Any]:
+def layer_calibration(calib: Dict[str, Any], l: int) -> Dict[str, Any]:
     """Layer ``l``'s sites of a calibration tree."""
     return {site: {k: v[l] for k, v in st.items()} for site, st in calib["layers"].items()}
 
@@ -171,6 +172,9 @@ def apply_model(
     calib: Optional[Dict[str, Any]] = None,
     collect: bool = False,
     remat: str = "block",
+    chip=None,
+    correct: bool = False,
+    calib_exact_ref: bool = False,
 ) -> ApplyOutput:
     """Full-sequence forward.  batch: {'tokens': [B, T] int}.
 
@@ -190,6 +194,12 @@ def apply_model(
     (:func:`repro_torch.core.checkpoint_policy.wrap_block`), as in the
     reference: ``"block"`` unless the caller says otherwise, and ``"none"``
     with ``return_cache``.
+
+    ``chip`` (a :class:`repro_torch.hw.variation.ChipProfile`) is the
+    device instance every emulated projection runs on; ``correct``
+    subtracts ``calib``'s fitted mean error from MODEL-mode outputs, and
+    ``calib_exact_ref`` makes a calibration pass fit those stats against
+    the exact matmul (see :class:`ApproxCtx`).
     """
     check_dense(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
@@ -199,11 +209,12 @@ def apply_model(
     if calib is None and (collect or approx.mode == TrainMode.INJECT):
         calib = init_calibration(cfg, approx, x.device)
     ctx = ApproxCtx(cfg=approx, rng=tuple(rng) if rng is not None else (0,), draws=draws,
-                    collect=collect)
+                    collect=collect, chip=chip, correct=correct,
+                    calib_exact_ref=calib_exact_ref)
     block = checkpoint_policy.wrap_block(_attn_block_apply, "none" if return_cache else remat)
     ks, vs, coll = [], [], []
     for l, p in enumerate(params.layers):
-        lctx = ctx.for_layer(l, None if calib is None else _layer_calibration(calib, l))
+        lctx = ctx.for_layer(l, None if calib is None else layer_calibration(calib, l))
         x, (k, v) = block(x, p, cfg, lctx, positions, chunk_q)
         coll.append(lctx.collected)
         if return_cache:

@@ -35,8 +35,17 @@ given start passes ``state=`` (the reference's, through
 :func:`repro_torch.convert.train_state_from_jax`, or weights already on
 the card), used when the checkpoint directory is empty.  That state is
 trained in place: a fault before the first checkpoint cannot go back to
-it, and is re-raised.  Chip fleets (``Phase.fleet``, ROADMAP A3) and the
-gated approximate backward (``Phase.backward``, A6) are refused.
+it, and is re-raised.
+
+* **Variation-aware phases** (``Phase.fleet = N``): each step trains
+  against chip ``step % N`` of a fleet sampled from ``variation`` under
+  ``fleet_seed`` (default ``seed + 7919``, apart from the data's seed),
+  built once per size.  The chip is a runtime argument of the chip-aware
+  steps: its emulated forward and calibration stats are that chip's, and
+  the adaptive calibration compares losses of one chip only.
+
+The gated approximate backward (``Phase.backward``, ROADMAP A6) is
+refused.
 """
 from __future__ import annotations
 
@@ -47,10 +56,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.ckpt import CheckpointManager
-from repro_torch.configs.base import ApproxConfig, TrainConfig
+from repro_torch.configs.base import ApproxConfig, CalibPolicy, Phase, TrainConfig, TrainMode
 from repro_torch.convert import train_state_layout
 from repro_torch.core.schedule import CalibrationController, PhasePlan
 from repro_torch.data import SyntheticLM
+from repro_torch.hw import Fleet, VariationModel
 from repro_torch.models.model import Model, resolve_device
 from repro_torch.training.steps import StepCache, init_train_state
 
@@ -67,7 +77,7 @@ class TrainReport:
     mode_steps: Dict[str, int] = dataclasses.field(default_factory=dict)
     phase_steps: Dict[str, int] = dataclasses.field(default_factory=dict)
     compile_stats: Dict[str, int] = dataclasses.field(default_factory=dict)
-    fleet_steps: int = 0  # no chip fleets in the port yet (ROADMAP A3)
+    fleet_steps: int = 0  # steps trained against a sampled device instance
     # --- approximate-backward accounting (every step exact: A6) --------
     backward_steps: Dict[str, int] = dataclasses.field(default_factory=dict)
     gate_refreshes: int = 0
@@ -95,6 +105,8 @@ class Trainer:
         restart_reset_steps: int = 50,
         device="cuda",
         state: Optional[Dict[str, Any]] = None,
+        variation: Optional[VariationModel] = None,
+        fleet_seed: Optional[int] = None,
     ):
         self.model = model
         self.approx = approx
@@ -111,10 +123,6 @@ class Trainer:
 
         self.plan = PhasePlan.from_configs(approx, tcfg)
         for p in self.plan.phases:
-            if p.fleet:
-                raise NotImplementedError(
-                    f"phase {p.name!r}: chip fleets (Phase.fleet) are not yet ported to "
-                    "repro_torch (ROADMAP A3)")
             if p.backward != "exact":
                 raise NotImplementedError(
                     f"phase {p.name!r}: the gated approximate backward (Phase.backward="
@@ -124,6 +132,9 @@ class Trainer:
         self._state = state          # the live state: restored in place
         self._given = state is not None
         self._trained = False        # whether a step has changed self._state
+        self.variation = variation if variation is not None else VariationModel()
+        self.fleet_seed = fleet_seed if fleet_seed is not None else seed + 7919
+        self._fleets: Dict[int, Fleet] = {}  # fleet size -> its chips
 
     # ------------------------------------------------------------------
     def _state_like(self):
@@ -165,11 +176,26 @@ class Trainer:
     def _save(self, step: int, state):
         self.ckpt.save(step, dict(train_state_layout(state), sched=self.controller.to_tree()))
 
-    def _step_fn(self, step: int):
+    def _chip_for(self, phase: Phase, step: int):
+        """The device instance this step trains against (None: nominal).
+        Only steps that read the chip get one: MODEL and INJECT steps and
+        phases that run calibration batches."""
+        if not phase.fleet or not self.approx.active:
+            return None
+        if (phase.mode in (TrainMode.NO_MODEL, TrainMode.PROXY_ONLY)
+                and phase.calibrate == CalibPolicy.OFF):
+            return None
+        fleet = self._fleets.get(phase.fleet)
+        if fleet is None:
+            fleet = self._fleets[phase.fleet] = Fleet(phase.fleet, seed=self.fleet_seed,
+                                                      variation=self.variation)
+        return fleet.chip_for_step(step)
+
+    def _step_fn(self, step: int, chip_aware: bool = False):
         """The train step and its label for a global step (cache-backed)."""
         index, phase, _ = self.plan.phase_at(step)
         fn = self.steps.train(phase.mode, lr_scale=phase.lr_scale,
-                              microbatches=phase.microbatches)
+                              microbatches=phase.microbatches, chip_aware=chip_aware)
         label = phase.name if len(self.plan.phases) > 1 else phase.mode.value
         return fn, label, phase
 
@@ -187,6 +213,7 @@ class Trainer:
         phase_steps: Dict[str, int] = {}
         backward_steps: Dict[str, int] = {}
         restarts = 0
+        fleet_steps = 0
         window_restarts = 0    # failures since the last budget refund
         success_streak = 0     # counts NEW-progress steps only (see below)
         best_step = start      # high-water mark of completed steps
@@ -201,19 +228,27 @@ class Trainer:
                     self.fault_hook(step)
                 rng = (self.seed + 17, step)  # fold_in(PRNGKey(seed + 17), step)
                 batch = self.data.batch_at(step)
+                # a variation-aware phase's device instance for this step
+                _, cur_phase, _ = self.plan.phase_at(step)
+                chip = self._chip_for(cur_phase, step)
                 t0 = time.perf_counter()
                 did_calibrate = self.controller.begin_step(step)
                 if did_calibrate:
                     self._trained = True
-                    state, cmetrics = self.steps.calibration()(state, batch, rng)
+                    cal = self.steps.calibration(chip_aware=chip is not None)
+                    state, cmetrics = cal(state, batch, rng, chip)
                     self._state = state
                     closs = float(cmetrics["loss"])
-                    self.controller.record(step, closs)
+                    # keyed on the chip: the adaptive policy compares one
+                    # chip's losses (the fleet's spread is not drift)
+                    self.controller.record(step, closs,
+                                           key=step % cur_phase.fleet if chip is not None else -1)
                     calib_losses.append((step, closs))
                     calibrations += 1
-                fn, label, phase = self._step_fn(step)
+                fn, label, phase = self._step_fn(step, chip_aware=chip is not None)
                 self._trained = True
-                state, metrics = fn(state, batch, rng)
+                fleet_steps += chip is not None
+                state, metrics = fn(state, batch, rng, chip)
                 self._state = state
                 loss = float(metrics["loss"])
                 dt = time.perf_counter() - t0
@@ -265,6 +300,7 @@ class Trainer:
             mode_steps=mode_steps,
             phase_steps=phase_steps,
             compile_stats=self.steps.stats(),
+            fleet_steps=fleet_steps,
             backward_steps=backward_steps,
             steps=steps,
             calibrated=calibrated,

@@ -1,8 +1,13 @@
 """Train, calibration and eval steps, and the cache that holds them (port
 of ``repro.training.steps``: ``init_train_state``, ``make_train_step``,
-``make_calibration_step``, ``make_eval_step`` and ``StepCache``; the
-chip-, switch- and backward-gate-aware variants wait for ROADMAP A3, A4
-and A6).
+``make_calibration_step``, ``make_eval_step`` and ``StepCache``, with
+their chip-aware variants; the switch- and backward-gate-aware variants
+wait for ROADMAP A4 and A6).
+
+Every step takes a trailing ``chip`` (default None; a
+:class:`repro_torch.hw.variation.ChipProfile`): its emulated forward and
+its calibration stats are then that device instance's (variation-aware
+training).
 
 The paper's schedule alternates graphs (INJECT or bit-accurate MODEL
 forward), so each step is built for one mode.  The reference jits its
@@ -65,8 +70,9 @@ def _batch(batch, device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _loss(params, batch, model: Model, approx, calib, rng, tcfg: TrainConfig):
-    out = model.apply(params, batch, approx=approx, calib=calib, rng=rng, remat=tcfg.remat)
+def _loss(params, batch, model: Model, approx, calib, rng, tcfg: TrainConfig, chip=None):
+    out = model.apply(params, batch, approx=approx, calib=calib, rng=rng, remat=tcfg.remat,
+                      chip=chip)
     return lm_loss(out.logits, batch["labels"])
 
 
@@ -77,7 +83,7 @@ def _split_micro(batch, n: int, i: int):
 def make_train_step(model: Model, approx: ApproxConfig, tcfg: TrainConfig,
                     mode: Optional[TrainMode] = None):
     """A train step for one approx mode (default: ``approx.mode``):
-    ``step(state, batch, rng) -> (state, metrics)``.
+    ``step(state, batch, rng, chip=None) -> (state, metrics)``.
 
     With ``tcfg.microbatches`` > 1 the batch splits into that many
     microbatches along its rows, each with ``rng`` + ``(i,)``; their
@@ -86,14 +92,14 @@ def make_train_step(model: Model, approx: ApproxConfig, tcfg: TrainConfig,
     if mode is not None:
         approx = dataclasses.replace(approx, mode=mode)
 
-    def step(state, batch, rng: Tuple[int, ...]):
+    def step(state, batch, rng: Tuple[int, ...], chip=None):
         params, calib = state["params"], state["calib"]
         named = dict(params.named_parameters())
         batch = _batch(batch, params.device)
         rng = tuple(rng)
 
         def grad_one(mb, r):
-            loss = _loss(params, mb, model, approx, calib, r, tcfg)
+            loss = _loss(params, mb, model, approx, calib, r, tcfg, chip)
             gs = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
             gs = [torch.zeros_like(t) if g is None else g for g, t in zip(gs, named.values())]
             return dict(zip(named, gs)), loss.detach()
@@ -126,15 +132,16 @@ def make_train_step(model: Model, approx: ApproxConfig, tcfg: TrainConfig,
 def make_calibration_step(model: Model, approx: ApproxConfig, tcfg: TrainConfig):
     """A forward pass with the bit-accurate emulation that refreshes the
     error-injection stats (paper Sec. 3.2's calibration batches):
-    ``step(state, batch, rng) -> (state with the new calib, metrics)``."""
+    ``step(state, batch, rng, chip=None) -> (state with the new calib,
+    metrics)``; with a chip the stats are that device instance's."""
     del tcfg
 
     @torch.no_grad()
-    def step(state, batch, rng: Tuple[int, ...]):
+    def step(state, batch, rng: Tuple[int, ...], chip=None):
         params = state["params"]
         batch = _batch(batch, params.device)
         out = model.apply(params, batch, approx=approx, calib=state["calib"], rng=tuple(rng),
-                          collect=True, remat="none")
+                          collect=True, remat="none", chip=chip)
         return dict(state, calib=out.collected), {"loss": lm_loss(out.logits, batch["labels"])}
 
     return step
@@ -143,16 +150,16 @@ def make_calibration_step(model: Model, approx: ApproxConfig, tcfg: TrainConfig)
 def make_eval_step(model: Model, approx: ApproxConfig):
     """Validation with the bit-accurate emulation (what the hardware would
     produce): MODEL mode whenever the config has approximate backends.
-    ``step(state, batch, rng) -> {"loss", "accuracy"}``."""
+    ``step(state, batch, rng, chip=None) -> {"loss", "accuracy"}``."""
     eval_cfg = (dataclasses.replace(approx, mode=TrainMode.MODEL)
                 if approx.approx_backends else approx)
 
     @torch.no_grad()
-    def step(state, batch, rng: Tuple[int, ...]):
+    def step(state, batch, rng: Tuple[int, ...], chip=None):
         params = state["params"]
         batch = _batch(batch, params.device)
         out = model.apply(params, batch, approx=eval_cfg, calib=state["calib"], rng=tuple(rng),
-                          remat="none")
+                          remat="none", chip=chip)
         return {"loss": lm_loss(out.logits, batch["labels"]),
                 "accuracy": accuracy(out.logits, batch["labels"])}
 
@@ -172,10 +179,14 @@ class StepCache:
     dataclass whose hash covers the mode, every backend's params and the
     site-backend map, so two phases that share a step share one entry.
 
+    Every step takes the chip as a trailing argument; the key records
+    only *that* a chip is threaded (``chip_aware``, as the reference's jit
+    cache does), never which one: a whole fleet shares one entry.
+
     The reference jits each entry and counts its traces; the port's steps
     run eagerly, so there is nothing to trace, and :meth:`stats` reports
-    only ``{"built": n}``, the number of distinct steps built.  The chip-,
-    switch- and backward-gate-aware variants raise (ROADMAP A3, A4, A6).
+    only ``{"built": n}``, the number of distinct steps built.  The switch-
+    and backward-gate-aware variants raise (ROADMAP A4, A6).
     """
 
     def __init__(self, model: Model, approx: ApproxConfig, tcfg: TrainConfig):
@@ -210,8 +221,8 @@ class StepCache:
         )
 
     @staticmethod
-    def _refuse(chip_aware=False, switch_aware=False, bwd_aware=False):
-        for asked, what, item in ((chip_aware, "chip", "A3"), (switch_aware, "switch", "A4"),
+    def _refuse(switch_aware=False, bwd_aware=False):
+        for asked, what, item in ((switch_aware, "switch", "A4"),
                                   (bwd_aware, "backward-gate", "A6")):
             if asked:
                 raise NotImplementedError(
@@ -221,7 +232,7 @@ class StepCache:
     def train(self, mode: Optional[TrainMode] = None, *, lr_scale: float = 1.0,
               microbatches: int = 0, chip_aware: bool = False, switch_aware: bool = False,
               bwd_aware: bool = False) -> Callable:
-        self._refuse(chip_aware, switch_aware, bwd_aware)
+        self._refuse(switch_aware, bwd_aware)
         approx = self._resolve(mode)
         key = ("train", approx, lr_scale, microbatches or self.tcfg.microbatches,
                chip_aware, switch_aware, bwd_aware)
@@ -229,11 +240,10 @@ class StepCache:
             self.model, approx, self._tcfg_for(lr_scale, microbatches)))
 
     def calibration(self, *, chip_aware: bool = False) -> Callable:
-        self._refuse(chip_aware)
         key = ("calibrate", self.approx, 1.0, self.tcfg.microbatches, chip_aware)
         return self.get(key, lambda: make_calibration_step(self.model, self.approx, self.tcfg))
 
     def eval(self, *, chip_aware: bool = False, switch_aware: bool = False) -> Callable:
-        self._refuse(chip_aware, switch_aware)
+        self._refuse(switch_aware)
         key = ("eval", self.approx, 1.0, self.tcfg.microbatches, chip_aware, switch_aware)
         return self.get(key, lambda: make_eval_step(self.model, self.approx))

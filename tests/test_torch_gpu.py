@@ -1198,3 +1198,72 @@ def _leaves(tree):
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
     return [tree]
+
+
+def _chip_and_stats(cuda, backend, site, y, exact, dtype):
+    """A real chip's epilogue operands at ``site`` (``sample_profile``,
+    its sigmas tripled so that stuck-at columns fire) and correction stats
+    fitted on the card against the exact product, as the engine's
+    recalibration fits them."""
+    from repro_torch.core import calibration
+    from repro_torch.hw import VariationModel, chip_epilogue, sample_profile
+    from repro_torch.kernels import prng
+    from repro_torch.kernels.epilogue import apply_epilogue
+
+    chip = sample_profile(prng.fold_in(prng.prng_key(7), 1), VariationModel(scale=3.0))
+    colgain, coladd = chip_epilogue(site, backend, chip, y.shape[-1], dtype, cuda)
+    y_chip = apply_epilogue(y, colgain=colgain, coladd=coladd)
+    stats = calibration.fit_error_stats(y_chip, y_chip.float() - exact.float(), 3)
+    return {"colgain": colgain, "coladd": coladd, "mean_coeffs": stats["mean"],
+            "mean_scale": stats["scale"]}, stats
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [256, 11008])
+@pytest.mark.parametrize("backend", ["approx_mult", "log_mult", "sc", "analog"])
+def test_fused_kernels_with_a_real_chip(cuda, backend, N):
+    """K2 (approx_mult, log_mult: a fault family's signed columns), K5 (sc)
+    and K7 (analog: a gain family's column gains and offset), at decode
+    shapes, with a sampled chip's epilogue and fitted correction stats:
+    bitwise their plain versions, and the composed path (the chip applied
+    to the empty-epilogue output, then the mean error subtracted)."""
+    from repro_torch.core import calibration
+    from repro_torch.kernels.epilogue import apply_epilogue
+
+    M, K, dtype = 4, 2048, torch.bfloat16
+    if backend in QUANT_MULS:
+        bits, perforate = QUANT_MULS[backend]
+        g, x, w = _edge_operands(cuda, M, K, N, dtype, N + len(backend))
+        mulf = plain_multiplier(backend, 2 * perforate)
+        cuda_fn = lambda e: int_operand_matmul_fused_cuda(x, w, bits, backend, e, dtype,
+                                                          2 * perforate)
+        ref_fn = lambda e: int_operand_matmul_fused_ref(x, w, bits, mulf, e, dtype)
+        exact = x.float() @ w.float()
+        name = f"elementwise_matmul_fused[{backend}]"
+    elif backend == "sc":
+        g, x, w, ux, uw, pre = _sc_serving_operands(cuda, M, K, N, N)
+        cuda_fn = lambda e: sc_matmul_fused_cuda(x, w, 32, (ux, uw), pre, e, dtype)
+        ref_fn = lambda e: sc_matmul_fused_ref(x, w, 32, (ux, uw), pre, e, dtype)
+        exact = ref_fn({})
+        name = "sc_matmul_packed_fused"
+    else:
+        g, x, w = _analog_operands(cuda, M, K, N, dtype, N)
+        pre = torch.tensor(0.8125, device=cuda).to(torch.bfloat16)
+        cuda_fn = lambda e: analog_matmul_fused_cuda(x, w, 128, 4, 4.0, pre, e, dtype)
+        ref_fn = lambda e: analog_matmul_fused_ref(x, w, 128, 4, 4.0, pre, e, dtype)
+        exact = ref_fn({})
+        name = "analog_matmul_fused"
+    plain = ref_fn({})
+    epi, stats = _chip_and_stats(cuda, backend, "mlp_up", plain, exact, dtype)
+    assert (epi["colgain"] is None) == (backend in QUANT_MULS)
+    if backend in QUANT_MULS:
+        assert int((epi["coladd"] != 0).sum()) > 0  # some stuck-at columns fire
+    before = build.LAUNCHES[name]
+    got = cuda_fn(epi)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == before + 1
+    want = ref_fn(epi)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    composed = apply_epilogue(cuda_fn({}), colgain=epi["colgain"], coladd=epi["coladd"])
+    composed = composed - calibration.predict_mean(stats, composed).to(dtype)
+    torch.testing.assert_close(got, composed, rtol=0, atol=0)

@@ -201,7 +201,8 @@ def test_unported_parts_raise():
     """Archs and training options the port does not run yet raise (every
     backend is ported: sc and analog since the second slice; every train
     mode since the training slice; every remat policy since the Trainer
-    slice)."""
+    slice; calibration against the exact matmul and on a chip since the
+    chip-fleet slice)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import injection, registry
@@ -214,9 +215,9 @@ def test_unported_parts_raise():
     with pytest.raises(ValueError):  # every remat policy is ported; a bad name raises
         TrainConfig(remat="blocks")
     x, w = torch.ones((2, 8)), torch.ones((8, 4))
-    cfg = TApprox(backend=TBackend.SC, mode=TMode.MODEL)
-    with pytest.raises(NotImplementedError):
-        injection.calibrate_matmul(x, w, cfg, None, exact_ref=True)
+    cfg = TApprox(backend=TBackend.ANALOG, mode=TMode.MODEL)
+    _, stats = injection.calibrate_matmul(x, w, cfg, None, exact_ref=True)
+    assert stats["mean"].shape == (2,)  # analog's degree 0, floored at 1
 
 
 def test_serve_cli_smoke(tmp_path):

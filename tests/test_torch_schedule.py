@@ -295,8 +295,9 @@ def test_calibration_controller_matches_reference(name, losses):
 
 def test_step_cache_keys_and_refusals():
     """Phases that share (mode, lr scale, microbatches) share one built
-    step; the chip-, switch- and backward-gate-aware variants raise,
-    naming their ROADMAP items; ``stats`` counts built steps only."""
+    step; a chip-aware step is an entry of its own, one for every chip;
+    the switch- and backward-gate-aware variants raise, naming their
+    ROADMAP items; ``stats`` counts built steps only."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import build_model
     from repro_torch.training.steps import StepCache
@@ -310,12 +311,14 @@ def test_step_cache_keys_and_refusals():
     assert cache.calibration() is cache.calibration()
     assert cache.eval() is cache.eval()
     assert cache.stats() == {"built": 5}
-    for kw, item in (({"chip_aware": True}, "A3"), ({"switch_aware": True}, "A4"),
-                     ({"bwd_aware": True}, "A6")):
+    chip_step = cache.train(tb.TrainMode.MODEL, chip_aware=True)
+    assert chip_step is cache.train(tb.TrainMode.MODEL, chip_aware=True)
+    assert chip_step is not cache.train(tb.TrainMode.MODEL)
+    assert cache.calibration(chip_aware=True) is not cache.calibration()
+    assert cache.stats() == {"built": 7}
+    for kw, item in (({"switch_aware": True}, "A4"), ({"bwd_aware": True}, "A6")):
         with pytest.raises(NotImplementedError, match=item):
             cache.train(tb.TrainMode.MODEL, **kw)
-    with pytest.raises(NotImplementedError, match="A3"):
-        cache.calibration(chip_aware=True)
     with pytest.raises(NotImplementedError, match="A4"):
         cache.eval(switch_aware=True)
 

@@ -129,8 +129,9 @@ def test_trainer_tracks_the_reference(tmp_path):
 
 
 def test_restart_budget_and_refusals(tmp_path):
-    """A fault that recurs is re-raised once the budget is spent; fleet and
-    gated-backward phases are refused, naming their ROADMAP items."""
+    """A fault that recurs is re-raised once the budget is spent; a fleet
+    phase is taken (tests/test_torch_trainer_fleet.py runs one), a
+    gated-backward phase refused, naming its ROADMAP item."""
 
     def always(s):
         if s == 1:
@@ -140,6 +141,8 @@ def test_restart_budget_and_refusals(tmp_path):
     tr.restart_budget = 2
     with pytest.raises(RuntimeError, match="persistent"):
         tr.run()
-    for spec, item in (("inject:3:fleet=4", "A3"), ("inject:3:bwd=approx", "A6")):
+    assert _port_trainer(tmp_path / "A3", plan=("exact:1", "inject:3:fleet=4"),
+                         state=None).plan.phases[1].fleet == 4
+    for spec, item in (("inject:3:bwd=approx", "A6"),):
         with pytest.raises(NotImplementedError, match=item):
             _port_trainer(tmp_path / item, plan=("exact:1", spec), state=None)
