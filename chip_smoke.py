@@ -118,8 +118,40 @@ checkout of the repository.  Phases, each synchronised before the next:
    (round robin by step), K6 in every MODEL step, finite losses; prints
    each step's wall ms and launches.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
-and last ``{"ok": true, "device": {...}}``.
+10. The search of the search-and-deploy loop at full width and depth, on
+   the engine phase's weights after phase 8 (``repro_torch.launch.search``
+   and ``repro_torch.search``): 2 exact base steps (the weights trained in
+   place), then ``profile_sensitivity`` and ``search`` under
+   ``dispatch="switch"`` over analog (arrays of 64, the CLI's
+   ``min(64, d_model)``), log_mult and approx_mult, batch 8 x 32 tokens, 2
+   mutations, the winner under half the exact energy.  Prints each
+   profile entry, the pool, the front, the winner's spec and energy
+   fraction, ``compile_stats`` (``built`` must be at most 2), the device
+   ms and launches of one blend probe and one hw eval (profiler traces),
+   and the peak memory; then re-scores every front map with static
+   dispatch, each loss bitwise its switch loss.  Cut: the base steps (2,
+   the CLI's default 60) and mutations (2, of 12), for time; no depth.
+11. Merged serving lanes (``Engine(switch=True)``) at full width, fused
+   decode, 4 slots: uniform approx_mult, log_mult, SC and analog requests,
+   the search's winner map, a heterogeneous map (``attn_*=approx_mult``,
+   ``mlp_*=log_mult``) and an exact request.  Asserts one merged lane for
+   every emulated request (the exact one in its own); K1-K7 (and the SC
+   tables and draws) launched; every fused projection of the first merged
+   decode step (rows on all four backends) bitwise its plain fused
+   version on the card; ``demote_sites(["mlp_*"])``, once every request
+   is admitted, turns those sites exact on every slot and nothing is
+   called for the first time after it; a solo request through the merged
+   lane bitwise its static lane on two fresh engines (every backend with
+   1 slot; approx_mult and log_mult also with 4: SC and analog take
+   per-tensor scales over every row, and a merged lane's idle rows run
+   exact).  Prints the steady-state rates (the queue served twice), and
+   the device ms, host waits and wall of a merged decode step (rows on
+   all four backends; on approx_mult and log_mult only, which must wait
+   for the host 0 times) beside the static lanes' steps.
+
+Prints the card's name and power limit, a ``{"kernels": [...]}`` line
+(launches per phase, ``search_launches`` and ``switch_launches``
+included), and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -861,7 +893,10 @@ def _syncs(fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchronizing" in str(w.message) for w in caught)
+    # the mode's own notice ("a prototype feature and does not yet detect
+    # all synchronizing operations", once a process) is no wait
+    return sum("synchronizing" in str(w.message) and "prototype" not in str(w.message)
+               for w in caught)
 
 
 def _traced_ms(fn):
@@ -1443,10 +1478,10 @@ def phase_fleet(dev, cfg, params, card: str):
     timings, held, gate = [], set(), {"on": False}
 
     def timed(kind, fn, backend_of):
-        def call(*args):
+        def call(*args, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(*args)
+            out = fn(*args, **kw)
             torch.cuda.synchronize()
             timings.append((kind, backend_of(*args), time.perf_counter() - t0))
             return out
@@ -1485,8 +1520,8 @@ def phase_fleet(dev, cfg, params, card: str):
         count_bad(lane, logits[[i for i, st in enumerate(lane.slots) if st is not None]])
         return logits
 
-    def counted_prefill(lane, toks, length, slot, rng):
-        last = prefill(lane, toks, length, slot, rng)
+    def counted_prefill(lane, *args):
+        last = prefill(lane, *args)
         count_bad(lane, last[None])
         return last
 
@@ -1682,6 +1717,299 @@ def phase_trainer_fleet(dev, cfg, params, card: str):
     return launches
 
 
+SEARCH_BACKENDS = ("analog", "log_mult", "approx_mult")  # the search CLI's default world
+SEARCH_B, SEARCH_T = 8, 32  # the search CLI's profiling batch
+SEARCH_BASE_STEPS = 2       # exact base steps (the CLI's default is 60)
+SEARCH_MUTATIONS = 2        # mutation steps (the CLI's default is 12)
+SEARCH_BUDGET = 0.5
+
+
+def phase_search(dev, cfg, params, card: str):
+    """The search-and-deploy loop's search at full width and depth (see
+    the module docstring, phase 10).  Trains ``params`` in place (the base
+    steps).  Returns the launches of the port's kernels in the profile and
+    the search, and the winner's site map."""
+    from repro_torch.configs.base import Backend, TrainMode
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.launch import search as search_cli
+    from repro_torch.models import build_model
+    from repro_torch.search import pareto
+    from repro_torch.search import sensitivity as sens
+    from repro_torch.training.steps import CompiledFnCache
+
+    model = build_model(cfg)
+    data = SyntheticLM(cfg.vocab_size, SEARCH_T, SEARCH_B, seed=0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    search_cli.train_base(model, data, SEARCH_BASE_STEPS, lr=2e-3, seed=0, device=dev,
+                          params=params)
+    gc.collect()  # the base steps' AdamW state goes before the search's peak
+    torch.cuda.synchronize()
+    base_s, base_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev) / 2**30
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    batch = data.batch_at(10_000)
+    base = search_cli.search_base(cfg)
+    fns = CompiledFnCache()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    profile = sens.profile_sensitivity(model, params, batch, base, SEARCH_BACKENDS, seed=0,
+                                       fns=fns, dispatch="switch",
+                                       switch_backends=SEARCH_BACKENDS)
+    torch.cuda.synchronize()
+    profile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result = pareto.search(model, params, batch, base, SEARCH_BACKENDS, seed=0,
+                           mutations=SEARCH_MUTATIONS, fns=fns, profile=profile,
+                           dispatch="switch")
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    stats = fns.stats()
+    if stats["built"] > 2:
+        raise AssertionError(f"[search] the switch search built {stats}")
+    for e in profile.entries:
+        if not (np.isfinite(e.first_order) and np.isfinite(e.hw_delta)):
+            raise AssertionError(f"[search] profile entry {e}")
+        print(f"[search] profile {json.dumps(dataclasses.asdict(e))}", flush=True)
+    winner = result.best_under_budget(SEARCH_BUDGET)
+    search_cli.check_spec(pareto.spec_of(winner.assignment), winner.assignment)
+    for k in ("analog_matmul", "elementwise_matmul[approx_mult,quantized]",
+              "elementwise_matmul[log_mult,quantized]"):
+        if not launches.get(k):
+            raise AssertionError(f"[search] {k} never launched: {launches}")
+    front = [dict(p.to_json(), energy_frac=p.energy / result.baseline_energy)
+             for p in result.front]
+    summary = {"arch": cfg.name, "layers": cfg.n_layers, "batch": [SEARCH_B, SEARCH_T],
+               "backends": list(SEARCH_BACKENDS), "base_steps": SEARCH_BASE_STEPS,
+               "base_s": base_s, "base_peak_gib": base_peak, "profile_s": profile_s,
+               "search_s": search_s, "exact_loss": result.exact_loss,
+               "pool": len(result.pool), "n_sites": result.n_sites, "front": front,
+               "winner": pareto.spec_of(winner.assignment),
+               "winner_energy_frac": winner.energy / result.baseline_energy,
+               "winner_loss": winner.loss, "compile_stats": stats, "peak_gib": peak,
+               "card": card}
+    print(f"[search] summary {json.dumps(summary)}", flush=True)
+
+    # one blend probe and one hardware eval, each traced (device ms) and
+    # counted (launches), on the steps the search built
+    probe = sens.one_site_config(base, "mlp_gate", "analog")
+    ccfg = sens._switch_cfg(probe, SEARCH_BACKENDS)
+    grad_fn = fns.get(("blend_grad_switch", ccfg), None)
+    idx = sens._switch_idx(probe, ccfg)
+    calls = {
+        "blend_probe": lambda: grad_fn(params, batch, (0,), 0.0, idx),
+        "hw_eval": lambda: sens.eval_loss(model, params, batch, probe, (0,), fns, "switch",
+                                          switch_backends=SEARCH_BACKENDS),
+    }
+    for kind, fn in calls.items():
+        _, wall, step_launches = _timed(fn)
+        dev_ms, by_group = _traced_ms(fn)
+        row = {"call": kind, "site": "mlp_gate", "backend": "analog", "wall_ms": wall,
+               "device_ms": dev_ms, "busy": dev_ms / wall, "by_group_ms": by_group,
+               "launches": step_launches, "card": card}
+        print(f"[search] {json.dumps(row)}", flush=True)
+    if fns.stats()["built"] != stats["built"]:
+        raise AssertionError(f"[search] the traced calls built steps: {fns.stats()}")
+
+    # every front map re-scored with static dispatch: bitwise the switch loss
+    static_fns = CompiledFnCache()
+    for p in result.front:
+        approx = dataclasses.replace(base, backend=Backend.EXACT, mode=TrainMode.MODEL,
+                                     site_backends=p.assignment)
+        loss = sens.eval_loss(model, params, batch, approx, (0,), static_fns, "static")
+        if loss != p.loss:
+            raise AssertionError(f"[search] {pareto.spec_of(p.assignment)}: static loss {loss} "
+                                 f"!= switch loss {p.loss}")
+    print(f"[search] {len(result.front)} front maps re-scored with static dispatch: every loss "
+          f"bitwise the switch loss ({static_fns.stats()['built']} static steps)", flush=True)
+    return launches, winner.assignment
+
+
+SWITCH_SLOTS = 4
+SWITCH_HETERO = (("attn_*", "approx_mult"), ("mlp_*", "log_mult"))
+SWITCH_DEMOTE = ("mlp_*",)
+
+
+def _hold_switch_projection(rec) -> None:
+    """A fused decode projection of a merged step against its plain fused
+    version on the same operands and key path, on the card, bitwise."""
+    from repro_torch.core import registry
+
+    name, _, x, w, p, rng, epi, y = rec
+    with _plain_on_card():
+        want = registry.get(name).fused_emulate(x, w, p, rng, epi)
+    _hold(f"{name} fused projection of a merged decode step",
+          (tuple(x.shape), tuple(w.shape)), y, want)
+
+
+def phase_switch(dev, cfg, params, card: str, winner):
+    """Merged serving lanes at full width (see the module docstring, phase
+    11).  Returns the launches of the port's kernels in the engine run."""
+    from repro_torch.core import switch as switch_lib
+    from repro_torch.core.approx_linear import ApproxCtx
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.models import decode as D
+    from repro_torch.runtime.engine import Engine, Request
+
+    model = build_model(cfg)
+    rnd = np.random.default_rng(11)
+
+    def req(rid, backend="exact", sites=(), gen=None):
+        prompt = tuple(int(t) for t in rnd.integers(0, cfg.vocab_size, int(rnd.integers(16, 49))))
+        return Request(rid=rid, prompt=prompt, max_new_tokens=gen or int(rnd.integers(8, 15)),
+                       backend=backend, site_backends=sites)
+
+    # the first four fill the merged lane's four slots: one decode step
+    # with every emulated backend's rows
+    queue = [req(i, b) for i, b in enumerate(EMULATED)]
+    queue += [req(4, sites=winner), req(5, sites=SWITCH_HETERO), req(6)]
+    queue += [req(7 + i, b) for i, b in enumerate(EMULATED)]
+    eng = Engine(model, params, n_slots=SWITCH_SLOTS, max_seq=MAX_SEQ, fused=True, device=dev,
+                 seed=0, switch=True, collect_logits=True)
+    gate = {"on": False, "done": False}
+    decode_lane = eng._decode_lane
+
+    def record_first_merged_step(lane):
+        gate["on"] = lane.switch and not gate["done"]
+        try:
+            return decode_lane(lane)
+        finally:
+            gate["done"] |= gate["on"]
+            gate["on"] = False
+
+    eng._decode_lane = record_first_merged_step
+    seen, restore = _record_projections(EMULATED, keep=lambda fused: fused and gate["on"])
+    demoted = {}
+    try:
+        build.reset_launches()
+        t0 = time.perf_counter()
+        for r in queue:
+            eng.submit(r)
+        while eng.pending or any(l.n_active() for l in eng.lanes.values()):
+            eng.step()
+            lane = next(l for l in eng.lanes.values() if l.switch)
+            if not eng.pending and not demoted and lane.n_active():
+                # e) every request admitted: demote the MLP sites mid-flight
+                demoted.update(warm=set(eng._warm), lane=lane, cache=lane.cache,
+                               n=eng.demote_sites(SWITCH_DEMOTE))
+                cols = [switch_lib.site_pos(s) for s in switch_lib.SITE_ORDER
+                        if s.startswith("mlp_")]
+                if demoted["n"] != 1 or lane.site_idx[:, cols].any():
+                    raise AssertionError(f"[switch] demotion: {demoted['n']} lanes, "
+                                         f"rows {lane.site_idx.tolist()}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    finally:
+        restore()
+    results = eng.results
+    if sorted(results) != list(range(len(queue))):
+        raise AssertionError(f"[switch] served {sorted(results)} of {len(queue)} requests")
+    for r in queue:
+        res = results[r.rid]
+        if len(res["tokens"]) != r.max_new_tokens or not all(
+                np.isfinite(row).all() for row in res["logits"]):
+            raise AssertionError(f"[switch] request {r.rid}: {len(res['tokens'])} tokens")
+    # a) every emulated request in one merged lane, the exact one in its own
+    names = sorted(l.name for l in eng.lanes.values())
+    if names != ["exact", "switch"]:
+        raise AssertionError(f"[switch] lanes {names}")
+    # b) K1-K7 (and the SC tables and draws) launched
+    missing = [k for k in PATH_KERNELS if launches.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"[switch] kernels never launched: {missing}")
+    # c) the recorded merged step's fused projections, bitwise
+    kinds = sorted({rec[0] for rec in seen})
+    if kinds != sorted(EMULATED):
+        raise AssertionError(f"[switch] the recorded merged step ran {kinds}")
+    for rec in seen:
+        _hold_switch_projection(rec)
+    print(f"[switch] {len(seen)} fused projections of one merged decode step (rows "
+          f"{', '.join(EMULATED)}) bitwise their plain fused versions on the card", flush=True)
+    del seen
+    # e) nothing rebuilt after the demotion: the same lane and cache, no
+    # first call
+    if (eng._warm != demoted["warm"] or demoted["lane"] is not next(
+            l for l in eng.lanes.values() if l.switch) or demoted["cache"] is not demoted[
+            "lane"].cache):
+        raise AssertionError("[switch] the demotion rebuilt something")
+    metrics = dict(eng.metrics(), wall_s=wall, card=card)
+    print(f"[switch] metrics {json.dumps(metrics)}", flush=True)
+    print(f"[switch] launches {json.dumps(launches)}", flush=True)
+    # steady state: the same queue again on the warm engine
+    eng.demote_sites(())
+    eng.reset_metrics()
+    t0 = time.perf_counter()
+    eng.run([dataclasses.replace(r, rid=r.rid + 100) for r in queue])
+    torch.cuda.synchronize()
+    metrics = dict(eng.metrics(), wall_s=time.perf_counter() - t0, card=card)
+    print(f"[switch] steady-state metrics {json.dumps(metrics)}", flush=True)
+    del eng
+
+    # d) a solo request through the merged lane, bitwise its static lane:
+    # every backend with one slot; approx_mult and log_mult with idle slots
+    # too (SC and analog take per-tensor scales over every row, and a
+    # merged lane's idle rows run exact)
+    for backend, slots in [(b, 1) for b in EMULATED] + [("approx_mult", SWITCH_SLOTS),
+                                                         ("log_mult", SWITCH_SLOTS)]:
+        solo = req(50, backend, gen=8)
+        out = {}
+        for switch in (False, True):
+            e = Engine(model, params, n_slots=slots, max_seq=MAX_SEQ, fused=True, device=dev,
+                       seed=0, switch=switch, collect_logits=True)
+            out[switch] = e.run([solo])[50]
+        same = out[True]["tokens"] == out[False]["tokens"] and all(
+            np.array_equal(a, b, equal_nan=True)
+            for a, b in zip(out[True]["logits"], out[False]["logits"]))
+        if not same:
+            raise AssertionError(f"[switch] solo {backend} at {slots} slots: merged lane != "
+                                 f"static lane")
+        print(f"[switch] solo {backend}, {slots} slots: merged lane bitwise the static lane "
+              f"({len(solo.prompt)}-token prompt, {solo.max_new_tokens} tokens)", flush=True)
+
+    # one merged decode step beside the static lanes' steps of the same
+    # backends: device ms (traces) and host waits (sync debug mode)
+    cache = D.init_cache(cfg, SWITCH_SLOTS, MAX_SEQ, dev)
+    tokens = torch.zeros((SWITCH_SLOTS, 1), dtype=torch.int64, device=dev)
+    pos = torch.full((SWITCH_SLOTS,), 20, dtype=torch.int32, device=dev)
+    canon = switch_lib.canonical(_serving_approx("log_mult"))
+
+    def rows(backends):
+        return np.stack([switch_lib.site_indices(_serving_approx(b)) for b in backends])
+
+    steps = {f"static {b}": (_serving_approx(b), None) for b in EMULATED}
+    steps["merged all four"] = (canon, rows(EMULATED))
+    steps["merged approx_mult+log_mult"] = (canon, rows(("approx_mult", "log_mult") * 2))
+    for kind, (approx, idx) in steps.items():
+        def step(_approx=approx, _idx=idx):
+            ctx = ApproxCtx(cfg=_approx, fused=True, rng=(0, 1), site_idx=_idx)
+            D.serve_step(params, cache, tokens, pos, cfg, ctx=ctx, flash=True)
+
+        dev_ms, by_group = _traced_ms(step)
+        syncs = _syncs(step)
+        walls = [cuda_ms(step, 1) for _ in range(3)]
+        if kind == "merged approx_mult+log_mult" and syncs:
+            raise AssertionError(f"[switch] a merged approx_mult/log_mult step waited for the "
+                                 f"host {syncs} times")
+        row = {"step": kind, "slots": SWITCH_SLOTS, "device_ms": dev_ms, "host_waits": syncs,
+               "wall_ms": float(np.median(walls)), "wall_ms_all": walls,
+               "by_group_ms": by_group, "card": card}
+        print(f"[switch] decode-step {json.dumps(row)}", flush=True)
+    return launches
+
+
+def _serving_approx(backend):
+    from repro_torch.configs.base import ApproxConfig, Backend, TrainMode
+
+    return ApproxConfig(backend=Backend(backend), mode=TrainMode.MODEL)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1724,6 +2052,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_static(dev, cfg, params, card)
     print(f"[fleet] the fleet and static phases: {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    search_launches, winner = phase_search(dev, cfg, params, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[search] the phase: {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    switch_launches = phase_switch(dev, cfg, params, card, winner)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[switch] the phase: {time.perf_counter() - t0:.1f}s", flush=True)
     summary.update(phase_normal(dev))
     train_launches, train_peak = phase_train(dev, cfg, params, card)
     for k, v in phase_train_backends(dev, cfg, params).items():
@@ -1739,6 +2077,7 @@ def main() -> int:
     print(f"[train] launches {json.dumps(train_launches)}", flush=True)
     print(f"[trainer] launches {json.dumps(trainer_launches)}", flush=True)
     print(f"[trainer-fleet] launches {json.dumps(trainer_fleet_launches)}", flush=True)
+    print(f"[search] launches {json.dumps(search_launches)}", flush=True)
 
     kernels = []
     for name in PATH_KERNELS + tuple(TRAIN_KERNELS):
@@ -1750,12 +2089,15 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": os.path.normpath(f"src/repro/kernels/{replaces}"),
             "launches": sum(d.get(name, 0) for d in (launches, train_launches, trainer_launches,
-                                                      fleet_launches, trainer_fleet_launches)),
+                                                      fleet_launches, trainer_fleet_launches,
+                                                      search_launches, switch_launches)),
             "engine_launches": launches.get(name, 0),
             "train_launches": train_launches.get(name, 0),
             "trainer_launches": trainer_launches.get(name, 0),
             "fleet_launches": fleet_launches.get(name, 0),
             "trainer_fleet_launches": trainer_fleet_launches.get(name, 0),
+            "search_launches": search_launches.get(name, 0),
+            "switch_launches": switch_launches.get(name, 0),
             "shape": row["shape"],
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],

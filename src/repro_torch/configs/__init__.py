@@ -1,6 +1,7 @@
 """Architecture registry: ``get_config("qwen2.5-3b")``.
 
-Only the qwen2.5-3b entry is ported; the reference's other archs raise.
+The qwen2.5-3b entry and the paper's own models (``paper-tinyconv``,
+``paper-resnet-tiny``) are ported; the reference's other archs raise.
 """
 from __future__ import annotations
 
@@ -18,12 +19,14 @@ from repro_torch.configs.base import (
 
 _ARCH_MODULES: Dict[str, str] = {
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+    "paper-tinyconv": "repro_torch.configs.paper_tiny",
+    "paper-resnet-tiny": "repro_torch.configs.paper_tiny",
 }
 # archs the JAX reference registers that the port does not serve yet
 _NOT_PORTED = (
     "mamba2-130m", "yi-6b", "mistral-large-123b", "granite-20b",
     "zamba2-1.2b", "paligemma-3b", "grok-1-314b", "dbrx-132b",
-    "musicgen-large", "paper-tinyconv", "paper-resnet-tiny",
+    "musicgen-large",
 )
 
 
@@ -33,7 +36,7 @@ def list_archs() -> List[str]:
 
 def _module(name: str):
     if name in _NOT_PORTED:
-        raise NotImplementedError(f"arch {name!r} is not yet ported to repro_torch")
+        raise NotImplementedError(f"arch {name!r} is not yet ported to repro_torch (ROADMAP A5)")
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(_ARCH_MODULES)}")
     return importlib.import_module(_ARCH_MODULES[name])

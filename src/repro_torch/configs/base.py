@@ -17,7 +17,7 @@ import dataclasses
 import enum
 import fnmatch
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 class Backend(str, enum.Enum):
@@ -307,6 +307,13 @@ class ApproxConfig:
     # ordered (site-pattern, backend-name) pairs; first fnmatch match wins
     site_backends: Tuple[Tuple[str, str], ...] = ()
 
+    # one-compile runtime dispatch (repro_torch.core.switch): when set, a
+    # switch-dispatched projection has branches only for these backends
+    # (exact always at index 0) instead of the whole registry table, and
+    # index arrays are resolved against the same sub-table
+    # (switch.site_indices(..., table=...)).  The static path ignores it.
+    switch_backends: Optional[Tuple[str, ...]] = None
+
     # --- ablations ---
     proxy_in_backward: bool = True  # False => backprop through plain matmul
                                     # (the paper's Tab. 2 "without activation")
@@ -533,7 +540,7 @@ class TrainConfig:
         if self.optim_compress != "none":
             raise NotImplementedError(
                 f"TrainConfig.optim_compress={self.optim_compress!r} is not yet ported to "
-                "repro_torch (only 'none')"
+                "repro_torch (only 'none'; ROADMAP A6)"
             )
         if self.microbatches < 1:
             raise ValueError(f"TrainConfig.microbatches must be >= 1; got {self.microbatches}")

@@ -1,6 +1,7 @@
 """``dense`` — the projection primitive every matmul of the model routes
 through (port of ``repro.core.approx_linear``: ``ApproxCtx``,
-``_approx_branch`` and ``dense`` with static dispatch).
+``_approx_branch``, ``_switch_dense`` and ``dense`` with static and
+runtime-switch dispatch).
 
 * no ctx / inactive config -> plain ``x @ w`` (exact baseline)
 * ``TrainMode.MODEL``      -> bit-accurate emulated forward, proxy backward;
@@ -15,8 +16,13 @@ The backend is resolved per call site (``cfg.backend_for(site)``), so one
 model can mix targets.  ``ctx.chip`` perturbs every emulated forward (MODEL
 mode, calibration passes) as that device instance would, and
 ``ctx.correct`` subtracts the site's fitted mean error from MODEL-mode
-outputs (online recalibration's correction).  The reference's
-runtime-switch, backward-gate and blend hooks are not ported yet.
+outputs (online recalibration's correction).
+
+``ctx.site_idx`` (:mod:`repro_torch.core.switch`) picks each site's
+backend from the switch table at run time instead (one step or serving
+lane for every map), and ``ctx.blend`` interpolates every approximate
+projection toward exact (the search's sensitivity probe).  The reference's
+backward-gate hook waits for the approximate backward (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -25,8 +31,12 @@ import functools
 import zlib
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
+import torch
+
 from repro_torch.configs.base import ApproxConfig, Backend, TrainMode
 from repro_torch.core import calibration, injection, registry
+from repro_torch.core import switch as switch_lib
 from repro_torch.hw import variation
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.epilogue import apply_epilogue
@@ -83,6 +93,8 @@ class ApproxCtx:
     chip: Optional[Dict[str, Any]] = None
     correct: bool = False
     calib_exact_ref: bool = False
+    blend: Optional[torch.Tensor] = None
+    site_idx: Optional[np.ndarray] = None
     _memo: Dict = dataclasses.field(default_factory=dict, init=False, repr=False, compare=False)
 
     def site_path(self, site: str) -> Tuple[int, ...]:
@@ -112,6 +124,18 @@ class ApproxCtx:
                                                       device)
         return self._memo[key]
 
+    def row_selector(self, device) -> torch.Tensor:
+        """The per-row ``site_idx`` on ``device``, copied once per ctx (a
+        decode step): from pinned host memory on the card, so the copy is
+        queued on the stream and the host does not wait."""
+        key = ("site_idx", str(device))
+        if key not in self._memo:
+            idx = torch.from_numpy(np.ascontiguousarray(self.site_idx, dtype=np.int32))
+            if torch.device(device).type == "cuda":
+                idx = idx.pin_memory().to(device, non_blocking=True)
+            self._memo[key] = idx
+        return self._memo[key]
+
     def with_calib(self, calib: Optional[Dict[str, Any]]) -> "ApproxCtx":
         """This ctx with a layer's calibration sites, sharing its path and
         its memo (a decode step's layers draw once per site, not per layer)."""
@@ -137,14 +161,27 @@ def _backend_name(backend) -> str:
 
 
 def _approx_branch(x, w, site: str, backend, ctx: ApproxCtx):
-    """The non-exact projection body for one backend under the ctx's mode."""
+    """The non-exact projection body for one backend under the ctx's mode,
+    shared by the static path and every switch branch; with ``ctx.blend``
+    interpolated toward exact."""
+    y = _mode_branch(x, w, site, backend, ctx)
+    if ctx.blend is not None:
+        # the sensitivity probe (ApproxCtx.blend): d loss / d blend at 0 is
+        # the first-order loss change of this site's approximation
+        exact = x @ w
+        y = exact + ctx.blend.to(exact.dtype) * (y - exact)
+    return y
+
+
+def _mode_branch(x, w, site: str, backend, ctx: ApproxCtx):
     cfg = ctx.cfg
     if cfg.mode == TrainMode.MODEL:
         spec = registry.get(backend)
         rng = ctx.site_rng(site)
         name = _backend_name(backend)
         stats = (ctx.calib or {}).get(site) if ctx.correct else None
-        if ctx.fused and spec.fused_emulate is not None and not injection.needs_grad(x, w):
+        if (ctx.fused and ctx.blend is None and spec.fused_emulate is not None
+                and not injection.needs_grad(x, w)):
             # the chip and the correction in the kernel's epilogue: the same
             # bits as the composed path below
             colgain, coladd = ctx.chip_terms(site, name, w.shape[-1], x.dtype, x.device)
@@ -169,13 +206,59 @@ def _approx_branch(x, w, site: str, backend, ctx: ApproxCtx):
     return x @ w  # NO_MODEL with an active backend
 
 
+def _switch_dense(x, w, *, site: str, ctx: ApproxCtx):
+    """Runtime-dispatched projection: ``ctx.site_idx[..., pos(site)]``
+    indexes the switch table (:func:`repro_torch.core.switch.table`, or the
+    sub-table of ``cfg.switch_backends``).
+
+    A per-site index (``[n_sites]``) is read on the host and runs its one
+    branch.  A per-row index (``[rows, n_sites]``, rows being ``x``'s
+    leading dim) runs each selected branch over the whole batch, then
+    picks each row's result with ``torch.where``: the SC and analog
+    emulators take per-tensor scales over every row, as the reference's
+    compute-all does.  A branch that no row selects is skipped: its output
+    would be discarded, and a branch is a pure function of the operands and
+    the site's key path (the SC draws are keyed by path), so the result is
+    bitwise that of computing every branch.  Every branch body is the
+    static path's :func:`_approx_branch`, so switch dispatch is bitwise
+    static dispatch per backend.  Outputs are in ``x``'s dtype."""
+    names = (switch_lib.subtable(ctx.cfg.switch_backends) if ctx.cfg.switch_backends
+             else switch_lib.table())
+    pos = switch_lib.site_pos(site)
+    idx = np.asarray(ctx.site_idx)[..., pos]
+
+    def branch(i: int):
+        if i == 0:
+            return (x @ w).to(x.dtype)
+        return _approx_branch(x, w, site, names[i], ctx).to(x.dtype)
+
+    top = len(names) - 1
+    if idx.ndim == 0:
+        return branch(min(max(int(idx), 0), top))
+    if idx.shape[0] != x.shape[0]:
+        raise ValueError(f"site_idx has {idx.shape[0]} rows for a batch of {x.shape[0]}")
+    chosen = sorted({min(max(int(i), 0), top) for i in idx})
+    out = branch(chosen[0])
+    if len(chosen) > 1:
+        col = ctx.row_selector(x.device)[:, pos].clamp(0, top)
+        col = col.reshape((-1,) + (1,) * (x.dim() - 1))
+        for i in chosen[1:]:
+            out = torch.where(col == i, branch(i), out)
+    return out
+
+
 def dense(x, w, b=None, *, site: str = "", ctx: ApproxCtx = None):
     """Projection ``x @ w (+ b)`` through the configured approximate path.
 
     x: [..., K]; w: [K, N]; b: [N] or None.
     """
     compute_dtype = x.dtype
-    if ctx is None or not ctx.cfg.active:
+    if (ctx is not None and ctx.site_idx is not None and not ctx.collect
+            and ctx.cfg.mode != TrainMode.NO_MODEL and switch_lib.site_pos(site) is not None):
+        # the backend is a runtime index (skip flags were folded to exact
+        # when the index was resolved, switch.site_indices)
+        y = _switch_dense(x, w, site=site, ctx=ctx)
+    elif ctx is None or not ctx.cfg.active:
         y = x @ w
     else:
         backend = ctx.cfg.backend_for(site)

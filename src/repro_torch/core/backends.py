@@ -1,8 +1,8 @@
 """Bit-accurate forward emulation of the approximate hardware (port of
 ``repro.core.backends``: the sc, analog, approx_mult and log_mult
-emulators, their fused variants, ``fake_quant_unipolar`` and the built-in
-registry entries with their proxies, fast forwards and calibration
-degrees).
+emulators, their fused variants, ``fake_quant_unipolar``, the parametric
+energy models and the built-in registry entries with their proxies, fast
+forwards, calibration degrees and energy models).
 
 The value-domain scaling — dynamic scales, split-unipolar planes,
 operand quantisation — runs in plain torch, op for op as in the
@@ -177,12 +177,54 @@ def _fused_emulate_analog(x, w, p: AnalogParams, rng, epi):
     return y.reshape(x.shape[:-1] + (w.shape[-1],))
 
 
+# ---------------------------------------------------------------------------
+# Parametric deployment-energy models (relative energy per MAC; one exact
+# digital MAC = 1.0): the paper's Tab. 1 relative op costs made parametric
+# in each backend's knobs, read by repro_torch.search.costmodel to price a
+# site->backend map.  SC grows linearly with stream length (split-unipolar
+# doubles the streams); a truncated multiplier ~quadratically with operand
+# width, saving ~8% per perforated partial-product row; a Mitchell
+# multiplier replaces the multiply array with shift/add; an analog MAC is
+# nearly free but pays an amortised share of its ADC, whose energy grows
+# exponentially in resolution.  Monotone in every knob, which is what the
+# search needs.  Constants copied from the reference.
+# ---------------------------------------------------------------------------
+
+_SC_BIT_CYCLE = 0.02       # AND+OR per stream bit-cycle vs one exact MAC
+_SC_RNG_OVERHEAD = 0.10    # stream generation (shared LFSRs, amortised)
+_ANALOG_MAC = 0.005        # crossbar current-summing MAC
+_ANALOG_ADC_UNIT = 0.004   # per-conversion unit: * bits * 2^bits / array
+_LOG_MULT_SCALE = 0.30     # shift/add vs multiply array, at 8-bit operands
+_APPROX_MULT_PERFORATE_SAVE = 0.08  # energy saved per dropped PP row
+
+
+def _energy_sc(p: SCParams) -> float:
+    return _SC_RNG_OVERHEAD + _SC_BIT_CYCLE * 2 * p.bits
+
+
+def _energy_analog(p: AnalogParams) -> float:
+    adc = _ANALOG_ADC_UNIT * p.adc_bits * (1 << p.adc_bits) / max(p.array_size, 1)
+    # operand DACs scale linearly in resolution (minor next to the ADC)
+    dac = 0.001 * (p.input_bits + p.weight_bits) / 16.0
+    return _ANALOG_MAC + adc + dac
+
+
+def _energy_approx_mult(p: ApproxMultParams) -> float:
+    full = (p.bits / 8.0) ** 2  # multiplier array area/energy ~ bits^2
+    return max(full * (1.0 - _APPROX_MULT_PERFORATE_SAVE * p.perforate), 1e-3)
+
+
+def _energy_log_mult(p: LogMultParams) -> float:
+    return _LOG_MULT_SCALE * p.bits / 8.0
+
+
 registry.register(BackendSpec(
     name=Backend.EXACT.value,
     params_cls=type(None),
     emulate=_emulate_exact,
     proxy_forward=proxy_lib.identity_proxy,
     calib_degree=0,
+    energy=lambda p: 1.0,
 ))
 
 registry.register(BackendSpec(
@@ -192,6 +234,7 @@ registry.register(BackendSpec(
     proxy_forward=proxy_lib.sc_proxy,
     fused_emulate=_fused_emulate_sc,
     kernels=kops.KERNELS["sc"],
+    energy=_energy_sc,
 ))
 
 registry.register(BackendSpec(
@@ -205,6 +248,7 @@ registry.register(BackendSpec(
     calib_degree=0,
     fused_emulate=_fused_emulate_analog,
     kernels=kops.KERNELS["analog"],
+    energy=_energy_analog,
 ))
 
 registry.register(BackendSpec(
@@ -214,6 +258,7 @@ registry.register(BackendSpec(
     proxy_forward=proxy_lib.identity_proxy,
     fused_emulate=_fused_emulate_approx_mult,
     kernels=kops.KERNELS["approx_mult"],
+    energy=_energy_approx_mult,
 ))
 
 registry.register(BackendSpec(
@@ -223,4 +268,5 @@ registry.register(BackendSpec(
     proxy_forward=proxy_lib.identity_proxy,
     fused_emulate=_fused_emulate_log_mult,
     kernels=kops.KERNELS["log_mult"],
+    energy=_energy_log_mult,
 ))

@@ -37,6 +37,11 @@ class BackendSpec:
       chip/calibration epilogue ``epi`` applied in the same kernel, or
       ``None`` for no fused path (``dense()`` then runs ``emulate``).
     * ``kernels``       — named kernel handles (``repro_torch.kernels.ops``).
+    * ``energy``        — deployment-energy model ``(params) -> float``: the
+      relative energy of one MAC on this hardware, one exact digital MAC
+      being 1.0 (the paper's Tab. 1 op costs scaled by the backend's knobs);
+      ``None`` prices it as exact.  Read by :mod:`repro_torch.search.
+      costmodel`.
     """
 
     name: str
@@ -47,6 +52,7 @@ class BackendSpec:
     calib_degree: Optional[int] = None
     fused_emulate: Optional[Callable] = None
     kernels: Mapping[str, Callable] = dataclasses.field(default_factory=dict)
+    energy: Optional[Callable] = None
 
     def proxy(self, x, w, params):
         """The proxy forward; raises for a serve-only spec."""
@@ -62,6 +68,18 @@ class BackendSpec:
         if self.fast_forward is not None:
             return self.fast_forward(x, w, params)
         return self.proxy(x, w, params)
+
+    def mac_energy(self, params) -> float:
+        """Relative energy per MAC on this hardware (exact MAC = 1.0)."""
+        if self.energy is None:
+            return 1.0
+        e = float(self.energy(params))
+        if not e > 0.0:
+            raise ValueError(
+                f"backend {self.name!r}: energy model returned {e}; per-MAC "
+                "energy must be > 0 (zero-cost hardware breaks Pareto search)"
+            )
+        return e
 
 
 _REGISTRY: Dict[str, BackendSpec] = {}
@@ -94,6 +112,11 @@ def get(backend: Union[Backend, str]) -> BackendSpec:
 def names() -> Tuple[str, ...]:
     _ensure_builtins()
     return tuple(sorted(_REGISTRY))
+
+
+def approx_names() -> Tuple[str, ...]:
+    """Every registered approximate backend name (exact excluded)."""
+    return tuple(n for n in names() if n != Backend.EXACT.value)
 
 
 # Shared split-unipolar plumbing.  Signed operands on unipolar hardware

@@ -26,6 +26,11 @@ engine steps at most (adaptive); ``--warm-start`` seeds a newly bound
 chip's correction from the fleet's mean.  The report's ``fleet`` field
 has each chip's probe losses.
 
+``--switch`` merges every emulated request into one lane whatever its
+backend or site map (per-slot backend indices, ``Engine(switch=True)``);
+it refuses ``--static`` and ``--fleet``, as the reference does.  The
+reference's ``--fabric`` waits for ROADMAP A7.
+
 ``--static`` runs the static-batch baseline instead (exact path only).
 Prefill/decode tok/s are steady-state: the first call of each shape is
 timed apart as ``warmup_s``.
@@ -103,6 +108,9 @@ def main(argv=None) -> dict:
                     help="decode through the fused kernels and flash decode attention")
     ap.add_argument("--no-fused", dest="fused", action="store_false",
                     help="decode through the composed path (default)")
+    ap.add_argument("--switch", action="store_true",
+                    help="runtime backend dispatch: merge every emulated request into one "
+                         "lane, per-slot backend indices; incompatible with --fleet")
     ap.add_argument("--static", action="store_true",
                     help="run the static-batch baseline instead of the engine")
     ap.add_argument("--stream", action="store_true", help="print tokens as they are generated")
@@ -125,6 +133,11 @@ def main(argv=None) -> dict:
     if args.fleet and args.static:
         ap.error("--fleet needs the engine (the static baseline never serves emulation); "
                  "drop --static")
+    if args.switch and args.static:
+        ap.error("--switch needs the engine; drop --static")
+    if args.switch and args.fleet:
+        ap.error("--switch merges lanes across site maps, which is incompatible with "
+                 "per-chip fleet lanes; drop one")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg)
@@ -155,7 +168,7 @@ def main(argv=None) -> dict:
             model, params, n_slots=args.slots, max_seq=max_seq, approx_base=ApproxConfig(),
             seed=args.seed, stream=stream, fused=args.fused, device=args.device,
             fleet=fleet, drift=drift, recalibrate_every=args.recalibrate_every,
-            warm_start=args.warm_start,
+            warm_start=args.warm_start, switch=args.switch,
         )
         results = engine.run(queue)
         report = dict(engine.metrics())

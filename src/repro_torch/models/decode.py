@@ -58,6 +58,8 @@ def serve_step(
     per-row positions.  ``ctx`` (an ``ApproxCtx`` in MODEL mode) serves
     bit-accurate emulated logits; its key path serves every layer and the
     LM head alike (decode keeps one key per step, as in the reference).
+    A ctx with a ``[B, n_sites]`` ``site_idx`` serves each row on its own
+    backend map (the engine's merged lanes).
     ``calib`` (a calibration tree, laid out as ``init_calibration``) gives
     each layer and the head its sites: with ``ctx.correct`` the fitted mean
     error is subtracted, how the engine serves a recalibrated chip.  Every
@@ -128,6 +130,7 @@ def prefill(
     calib=None,
     chip=None,
     correct: bool = False,
+    backend_idx=None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Bulk prefill: one full-sequence forward over ``tokens [B, L]``.
 
@@ -136,9 +139,10 @@ def prefill(
     ``(last_logits [B, vocab], cache)``, the cache padded to ``max_seq``
     when given.  ``approx`` with ``mode=MODEL`` prefills with bit-accurate
     emulation (composed path, as in the reference); ``rng``, ``draws``,
-    ``calib``, ``chip`` and ``correct`` go to
+    ``calib``, ``chip``, ``correct`` and ``backend_idx`` go to
     :func:`repro_torch.models.transformer.apply_model`: a chip-bound lane
-    prefills on its chip, with its correction.
+    prefills on its chip, with its correction, and a merged lane on the
+    request's ``[n_sites]`` index vector.
     """
     B, T = tokens.shape
     if lengths is None:
@@ -148,7 +152,7 @@ def prefill(
         params, {"tokens": tokens}, cfg,
         approx=approx if approx is not None else ApproxConfig(),
         chunk_q=chunk_q, return_cache=True, rng=rng, draws=draws, calib=calib, chip=chip,
-        correct=correct,
+        correct=correct, backend_idx=backend_idx,
     )
     last = out.logits[torch.arange(B, device=tokens.device), lengths - 1]
     cache = out.cache

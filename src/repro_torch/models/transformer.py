@@ -1,8 +1,8 @@
 """Decoder-LM assembly, DENSE family (port of ``repro.models.transformer``:
 ``padded_vocab``, ``init_params``, ``init_calibration``,
 ``_attn_block_apply``, ``_embed``, ``_lm_head`` and ``apply_model`` with
-``return_cache``, ``calib``, ``collect``, ``remat``, ``chip``, ``correct``
-and ``calib_exact_ref``).
+``return_cache``, ``calib``, ``collect``, ``remat``, ``chip``, ``correct``,
+``calib_exact_ref``, ``blend`` and ``backend_idx``).
 
 The parameters are an ``nn.Module`` tree (:class:`Transformer`); a Python
 loop over ``layers`` takes the place of the reference's ``lax.scan``.
@@ -13,6 +13,7 @@ import dataclasses
 import os
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -63,7 +64,8 @@ class Transformer(nn.Module):
 def check_dense(cfg: ModelConfig) -> None:
     if cfg.family != Family.DENSE:
         raise NotImplementedError(
-            f"family {cfg.family.value!r} is not yet ported to repro_torch (DENSE only)"
+            f"family {cfg.family.value!r} is not yet ported to repro_torch "
+            "(DENSE only; ROADMAP A5)"
         )
 
 
@@ -175,6 +177,8 @@ def apply_model(
     chip=None,
     correct: bool = False,
     calib_exact_ref: bool = False,
+    blend=None,
+    backend_idx=None,
 ) -> ApplyOutput:
     """Full-sequence forward.  batch: {'tokens': [B, T] int}.
 
@@ -200,6 +204,15 @@ def apply_model(
     subtracts ``calib``'s fitted mean error from MODEL-mode outputs, and
     ``calib_exact_ref`` makes a calibration pass fit those stats against
     the exact matmul (see :class:`ApproxCtx`).
+
+    ``blend`` (a scalar tensor) is the sensitivity probe threaded into
+    every layer's ctx (``ApproxCtx.blend``).  ``backend_idx`` switches
+    every layer to runtime backend dispatch (``ApproxCtx.site_idx``,
+    :mod:`repro_torch.core.switch`): an int32 ``[n_sites]`` array over
+    ``switch.SITE_ORDER`` for every layer and the head, or
+    :func:`repro_torch.core.switch.model_indices`' ``{"layers": [L, S],
+    "head": [S]}`` giving each layer its own map.  Host arrays: the index
+    is read on the host.
     """
     check_dense(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
@@ -208,13 +221,21 @@ def apply_model(
     positions = torch.arange(T, dtype=torch.int32, device=x.device).expand(B, T)
     if calib is None and (collect or approx.mode == TrainMode.INJECT):
         calib = init_calibration(cfg, approx, x.device)
+    b_layers = b_head = None
+    if isinstance(backend_idx, dict):
+        b_layers = np.asarray(backend_idx["layers"], np.int32)
+        b_head = np.asarray(backend_idx["head"], np.int32)
+    elif backend_idx is not None:
+        b_head = np.asarray(backend_idx, np.int32)
     ctx = ApproxCtx(cfg=approx, rng=tuple(rng) if rng is not None else (0,), draws=draws,
                     collect=collect, chip=chip, correct=correct,
-                    calib_exact_ref=calib_exact_ref)
+                    calib_exact_ref=calib_exact_ref, blend=blend, site_idx=b_head)
     block = checkpoint_policy.wrap_block(_attn_block_apply, "none" if return_cache else remat)
     ks, vs, coll = [], [], []
     for l, p in enumerate(params.layers):
         lctx = ctx.for_layer(l, None if calib is None else layer_calibration(calib, l))
+        if b_layers is not None:
+            lctx.site_idx = b_layers[l]
         x, (k, v) = block(x, p, cfg, lctx, positions, chunk_q)
         coll.append(lctx.collected)
         if return_cache:

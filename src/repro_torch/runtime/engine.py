@@ -2,7 +2,8 @@
 emulation (port of ``repro.runtime.engine``: ``Request``,
 ``resolve_approx``, ``synthetic_requests``, lanes, slot admit/evict,
 bucketed bulk prefill, per-slot positions, ``fused``, ``collect_logits``,
-``stream``, chip fleets with drift and online recalibration, and
+``stream``, chip fleets with drift and online recalibration, merged switch
+lanes with ``site_mask`` and ``demote_sites``, and
 ``run_static_baseline``).
 
 * **Lanes.**  Each distinct serving config (an ``ApproxConfig`` resolved
@@ -31,6 +32,14 @@ bucketed bulk prefill, per-slot positions, ``fused``, ``collect_logits``,
   drifting probe loss and refits the stats, which prefill and decode
   subtract from every projection (``correct``).  Decode takes the chip and
   the correction in the fused kernels' epilogues.
+* **Merged lanes** (``switch=True``).  Every emulated request, whatever
+  its backend or site map, shares one lane keyed on the canonical config
+  (:func:`repro_torch.core.switch.canonical`); each slot keeps a host
+  index row over ``switch.SITE_ORDER`` (idle slots at exact), prefill runs
+  on the request's row and decode on the ``[n_slots, n_sites]`` matrix
+  (``ApproxCtx.site_idx``).  Exact requests keep their own lane.
+  ``site_mask`` / :meth:`Engine.demote_sites` turn matching sites exact on
+  every slot, a rewrite of the index rows.  Incompatible with a fleet.
 * **Random streams.**  Every prefill, lane decode step, recalibration and
   probe takes the next engine tick; its key path ``(seed, tick)`` seeds
   the SC generator sequences of that call (see
@@ -40,12 +49,11 @@ bucketed bulk prefill, per-slot positions, ``fused``, ``collect_logits``,
   depend on everything that shares the batch (padded prefill positions,
   idle decode rows), exactly as in the reference.
 
-The reference's one-compile switch and fabric hooks (``switch``,
-``site_mask``, ``external_recal``, ``push_calib``) are not ported yet.
-PyTorch runs eagerly, so there is no compile step: the first call of each
-(kind, shape, config) carries kernel loading and allocator warm-up
-instead, and is timed apart as ``warmup_s``, as the reference times
-compiling calls apart.
+The reference's fabric hooks (``external_recal``, ``push_calib``) wait for
+ROADMAP A7.  PyTorch runs eagerly, so there is no compile step: the first
+call of each (kind, shape, config) carries kernel loading and allocator
+warm-up instead, and is timed apart as ``warmup_s``, as the reference
+times compiling calls apart.
 
 ``run_static_baseline`` is the static-batch driver the reference's
 serving benchmark compares the engine against: waves of padded requests,
@@ -70,6 +78,7 @@ from repro_torch.configs.base import (
     resolve_backend,
 )
 from repro_torch.core import registry
+from repro_torch.core import switch as switch_lib
 from repro_torch.core.approx_linear import ApproxCtx
 from repro_torch.core.schedule import CalibrationController, PhasePlan
 from repro_torch.hw import DriftModel, Fleet
@@ -164,12 +173,17 @@ class _Lane:
     online recalibration refits, ``controller`` the adaptive cadence."""
 
     def __init__(self, approx: ApproxConfig, cache, n_slots: int, chip_id: int = -1,
-                 chip=None):
+                 chip=None, switch: bool = False):
         self.approx = approx
         self.cache = cache
         self.slots: List[Optional[_Active]] = [None] * n_slots
         self.tokens = np.zeros((n_slots, 1), np.int64)
         self.pos = np.zeros((n_slots,), np.int32)
+        # a merged lane (approx is the canonical config): each slot's
+        # backend index row, idle slots at exact
+        self.switch = switch
+        self.site_idx = (np.zeros((n_slots, len(switch_lib.SITE_ORDER)), np.int32)
+                         if switch else None)
         # steady-state accounting of this lane (first calls excluded)
         self.prefill_s = self.decode_s = 0.0
         self.prefill_tokens = self.decode_tokens = self.decode_steps = 0
@@ -190,8 +204,11 @@ class _Lane:
 
     @property
     def name(self) -> str:
-        """The lane's backend, its site map when it has one, and its chip."""
+        """The lane's backend, its site map when it has one, and its chip
+        (``switch`` for a merged lane)."""
         a = self.approx
+        if self.switch:
+            return "switch"
         if not a.active:
             return Backend.EXACT.value
         sites = ",".join(f"{p}={b}" for p, b in a.site_backends)
@@ -230,6 +247,11 @@ class Engine:
     recalibration (it only feeds ``fleet_report``); ``warm_start`` seeds a
     newly bound chip's stats from ``Fleet.mean_calib`` instead of fitting
     them at bind time (while some chip is calibrated).
+
+    ``switch`` merges every emulated request into one lane whatever its
+    backend or site map (see the module docstring); ``site_mask`` (fnmatch
+    patterns, with ``switch``) demotes matching sites to exact on every
+    admitted request, and :meth:`demote_sites` swaps it at run time.
     """
 
     def __init__(
@@ -255,6 +277,8 @@ class Engine:
         correct: bool = True,
         probe_corrected: bool = True,
         warm_start: bool = False,
+        switch: bool = False,
+        site_mask: Sequence[str] = (),
     ):
         self.device = resolve_device(device)
         if params.device.type != self.device.type:
@@ -279,6 +303,13 @@ class Engine:
         self.correct = bool(correct)
         self.probe_corrected = bool(probe_corrected)
         self.warm_start = bool(warm_start)
+        self.switch = bool(switch)
+        self.site_mask: Tuple[str, ...] = tuple(site_mask)
+        if self.switch and fleet is not None:
+            raise ValueError(
+                "Engine(switch=True) is incompatible with a fleet: merged lanes no longer "
+                "map 1:1 onto chips (per-chip recalibration needs one config per lane)"
+            )
         if probe is None and fleet is not None:
             rnd = np.random.default_rng(seed + 101)
             shape = (2, min(32, self.max_seq))
@@ -341,6 +372,14 @@ class Engine:
             b *= 2
         return min(b, self.max_seq)
 
+    def _lane_key(self, approx: ApproxConfig) -> ApproxConfig:
+        """The config a request's lane is keyed on: under ``switch`` every
+        emulated config collapses onto its canonical form, one merged lane
+        for every map (the map becomes the slot's index row at admit)."""
+        if self.switch and approx.active:
+            return switch_lib.canonical(approx)
+        return approx
+
     def _max_lanes(self, approx: ApproxConfig) -> int:
         """How many lanes a serving config may spread over: one per active
         chip when a fleet serves it, else one (nominal)."""
@@ -348,14 +387,15 @@ class Engine:
             return len(self.fleet.active_ids())
         return 1
 
-    def _new_lane(self, approx: ApproxConfig, index: int) -> _Lane:
+    def _new_lane(self, approx: ApproxConfig, index: int, switch: bool = False) -> _Lane:
         cache = D.init_cache(self.cfg, self.n_slots, self.max_seq, self.device)
         chip, chip_id = None, index
         if self.fleet is not None and approx.active:
             # the index-th active chip: retired chips never serve again
             chip_id = self.fleet.active_ids()[index]
             chip = self.fleet.chip(chip_id)
-        lane = self.lanes[(approx, index)] = _Lane(approx, cache, self.n_slots, chip_id, chip)
+        lane = self.lanes[(approx, index)] = _Lane(approx, cache, self.n_slots, chip_id, chip,
+                                                   switch=switch)
         if chip is not None:
             lane.controller = CalibrationController(
                 PhasePlan((Phase(TrainMode.MODEL, steps=2**31 - 1,
@@ -381,7 +421,7 @@ class Engine:
             lane.controller.record(lane.tick, loss)
         return lane
 
-    def _lane_for(self, approx: ApproxConfig) -> Optional[_Lane]:
+    def _lane_for(self, approx: ApproxConfig, switch: bool = False) -> Optional[_Lane]:
         """A lane of this config with a free slot, growing the set chip by
         chip until the fleet is exhausted; None when saturated."""
         lanes = [l for (a, _), l in self.lanes.items() if a == approx]
@@ -389,7 +429,7 @@ class Engine:
             if lane.free_slots():
                 return lane
         if len(lanes) < self._max_lanes(approx):
-            return self._new_lane(approx, len(lanes))
+            return self._new_lane(approx, len(lanes), switch=switch)
         return lanes[0] if lanes else None
 
     # -- online recalibration ---------------------------------------------
@@ -455,6 +495,19 @@ class Engine:
         elif self.drift is not None:
             lane.chip = drift_lib.advance(lane.chip, tokens, self.drift)
 
+    def demote_sites(self, patterns: Sequence[str]) -> int:
+        """Install a site demotion mask (``switch`` engines): matching sites
+        serve exact (index 0) on every current and future slot, the
+        per-chip stuck-at-fault containment.  A rewrite of the host index
+        rows, nothing rebuilt; returns how many lanes were rewritten."""
+        self.site_mask = tuple(patterns)
+        rewritten = 0
+        for lane in self.lanes.values():
+            if lane.switch:
+                lane.site_idx = switch_lib.mask_site_indices(lane.site_idx, self.site_mask)
+                rewritten += 1
+        return rewritten
+
     def _sample(self, req: Request, logits_row: np.ndarray) -> int:
         if req.temperature <= 0:
             return int(np.argmax(logits_row))
@@ -477,7 +530,7 @@ class Engine:
             "prefill_s": st.prefill_s,
             "latencies_s": list(st.latencies),
             "backend": st.req.backend,
-            "emulated": lane.approx.active,
+            "emulated": lane.approx.active or lane.switch,
             "chip": lane.chip_id if lane.chip is not None else None,
             "logits": st.logits if self.collect_logits else None,
         }
@@ -487,25 +540,38 @@ class Engine:
         D.slot_reset(self.cfg, lane.cache, slot)
         lane.tokens[slot, 0] = 0
         lane.pos[slot] = 0
+        if lane.switch:
+            lane.site_idx[slot] = 0  # idle rows decode exact
 
-    def _prefill(self, lane: _Lane, toks, length: int, slot: int, rng):
+    def _prefill(self, lane: _Lane, toks, length: int, slot: int, rng, idx_row=None):
         # a chip-bound lane prefills on its chip, with its correction (a
-        # nominal lane has neither)
+        # nominal lane has neither); a merged lane on the request's row
         last, sub = D.prefill(
             self.params, toks, self.cfg, lengths=[length], max_seq=self.max_seq,
             approx=lane.approx, rng=rng, draws=self.draws, chip=lane.chip, calib=lane.calib,
-            correct=self.correct,
+            correct=self.correct, backend_idx=idx_row,
         )
         D.slot_insert(self.cfg, lane.cache, sub, slot)
         return last[0]
 
-    def _admit(self, lane: _Lane, slot: int, req: Request) -> List[Dict[str, Any]]:
+    def _admit(self, lane: _Lane, slot: int, req: Request,
+               approx: ApproxConfig) -> List[Dict[str, Any]]:
         P = len(req.prompt)
         L = self._bucket(P)
         toks = torch.zeros((1, L), dtype=torch.int64, device=self.device)
         toks[0, :P] = torch.tensor(req.prompt, dtype=torch.int64)
+        idx_row = None
+        if lane.switch:
+            # the request's resolved map becomes the slot's index row, which
+            # its prefill runs on; masked sites serve exact
+            sub = lane.approx.switch_backends  # the lane's closed backend world, if any
+            table = switch_lib.subtable(sub) if sub else None
+            idx_row = switch_lib.mask_site_indices(switch_lib.site_indices(approx, table=table),
+                                                   self.site_mask)
+        # the key holds no map: a new map is no first call
         key = ("prefill", L, lane.approx, lane.chip is not None)
-        last, dt, first = self._call(key, self._prefill, lane, toks, P, slot, self._next_rng())
+        last, dt, first = self._call(key, self._prefill, lane, toks, P, slot, self._next_rng(),
+                                     idx_row)
         self._advance_chip(lane, P)
         if not first:  # steady-state accounting: first calls are excluded
             self.prefill_s += dt  # from both time AND tokens
@@ -521,6 +587,8 @@ class Engine:
         lane.slots[slot] = st
         lane.tokens[slot, 0] = st.tokens[-1]
         lane.pos[slot] = P
+        if lane.switch:
+            lane.site_idx[slot] = idx_row
 
         events: List[Dict[str, Any]] = []
         done = len(st.tokens) >= req.max_new_tokens
@@ -531,7 +599,11 @@ class Engine:
 
     def _decode(self, lane: _Lane, rng):
         ctx = None
-        if lane.approx.active:
+        if lane.switch:
+            # every row on its own map (idle rows exact)
+            ctx = ApproxCtx(cfg=lane.approx, fused=self.fused, rng=rng, draws=self.draws,
+                            site_idx=lane.site_idx)
+        elif lane.approx.active:
             # a chip-bound lane: the chip and its correction (in the fused
             # kernels' epilogues when fused)
             ctx = ApproxCtx(cfg=lane.approx, fused=self.fused, rng=rng, draws=self.draws,
@@ -585,10 +657,10 @@ class Engine:
         deferred: deque = deque()
         while self.pending:
             req, approx = self.pending.popleft()
-            lane = self._lane_for(approx)
+            lane = self._lane_for(self._lane_key(approx), switch=self.switch and approx.active)
             free = lane.free_slots() if lane is not None else []
             if free:
-                events += self._admit(lane, free[0], req)
+                events += self._admit(lane, free[0], req, approx)
             else:
                 deferred.append((req, approx))
         self.pending = deferred
@@ -645,10 +717,12 @@ class Engine:
             "total_tok_s": total_tok / max(total_s, 1e-9),
             "warmup_s": self.warmup_s,
             "fused": self.fused,
+            "switch": self.switch,
             "p50_ms": float(np.percentile(lat, 50) * 1e3) if lat else 0.0,
             "p99_ms": float(np.percentile(lat, 99) * 1e3) if lat else 0.0,
             "slot_util": util,
             "recalibrations": self.recalibrations,
+            "site_mask": list(self.site_mask),
             "fleet_chips": len(self.fleet) if self.fleet is not None else 0,
             "device": str(self.device),
             "per_lane": {

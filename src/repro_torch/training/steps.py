@@ -1,13 +1,16 @@
-"""Train, calibration and eval steps, and the cache that holds them (port
+"""Train, calibration and eval steps, and the caches that hold them (port
 of ``repro.training.steps``: ``init_train_state``, ``make_train_step``,
-``make_calibration_step``, ``make_eval_step`` and ``StepCache``, with
-their chip-aware variants; the switch- and backward-gate-aware variants
-wait for ROADMAP A4 and A6).
+``make_calibration_step``, ``make_eval_step``, ``CompiledFnCache`` and
+``StepCache``, with their chip- and switch-aware variants; the
+backward-gate-aware variant waits for ROADMAP A6).
 
 Every step takes a trailing ``chip`` (default None; a
 :class:`repro_torch.hw.variation.ChipProfile`): its emulated forward and
 its calibration stats are then that device instance's (variation-aware
-training).
+training).  A switch-aware train or eval step also takes ``backend_idx``
+after it (a :mod:`repro_torch.core.switch` index array or
+``model_indices`` dict): the site->backend map is an argument, so every
+map shares one step built on ``switch.canonical(approx)``.
 
 The paper's schedule alternates graphs (INJECT or bit-accurate MODEL
 forward), so each step is built for one mode.  The reference jits its
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ApproxConfig, TrainConfig, TrainMode
+from repro_torch.core import switch as switch_lib
 from repro_torch.models.model import Model, resolve_device
 from repro_torch.optim.adamw import adamw_init, adamw_update
 from repro_torch.training.losses import accuracy, lm_loss
@@ -47,7 +51,8 @@ def init_train_state(model: Model, seed: int, approx: ApproxConfig,
     given ``params``, which are trained in place from here on), every
     weight made trainable, AdamW's state, zero calibration stats."""
     if tcfg is not None and tcfg.optim_compress != "none":
-        raise NotImplementedError("compressed optimizer state is not yet ported")
+        raise NotImplementedError(
+            "compressed optimizer state is not yet ported to repro_torch (ROADMAP A6)")
     device = resolve_device(device)
     if params is None:
         params = model.init(seed, device)
@@ -70,10 +75,20 @@ def _batch(batch, device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _loss(params, batch, model: Model, approx, calib, rng, tcfg: TrainConfig, chip=None):
+def _loss(params, batch, model: Model, approx, calib, rng, tcfg: TrainConfig, chip=None,
+          backend_idx=None):
     out = model.apply(params, batch, approx=approx, calib=calib, rng=rng, remat=tcfg.remat,
-                      chip=chip)
+                      chip=chip, backend_idx=backend_idx)
     return lm_loss(out.logits, batch["labels"])
+
+
+def _switch_arg(switch_aware: bool, backend_idx):
+    """A switch-aware step needs its map; another step takes none."""
+    if switch_aware and backend_idx is None:
+        raise TypeError("a switch-aware step needs backend_idx")
+    if not switch_aware and backend_idx is not None:
+        raise TypeError("backend_idx needs a switch-aware step (switch_aware=True)")
+    return backend_idx
 
 
 def _split_micro(batch, n: int, i: int):
@@ -81,9 +96,11 @@ def _split_micro(batch, n: int, i: int):
 
 
 def make_train_step(model: Model, approx: ApproxConfig, tcfg: TrainConfig,
-                    mode: Optional[TrainMode] = None):
+                    mode: Optional[TrainMode] = None, *, switch_aware: bool = False):
     """A train step for one approx mode (default: ``approx.mode``):
-    ``step(state, batch, rng, chip=None) -> (state, metrics)``.
+    ``step(state, batch, rng, chip=None) -> (state, metrics)``, or with
+    ``switch_aware`` ``step(state, batch, rng, chip=None, backend_idx=...)``
+    (pass the canonical config, ``switch.canonical``).
 
     With ``tcfg.microbatches`` > 1 the batch splits into that many
     microbatches along its rows, each with ``rng`` + ``(i,)``; their
@@ -92,14 +109,15 @@ def make_train_step(model: Model, approx: ApproxConfig, tcfg: TrainConfig,
     if mode is not None:
         approx = dataclasses.replace(approx, mode=mode)
 
-    def step(state, batch, rng: Tuple[int, ...], chip=None):
+    def step(state, batch, rng: Tuple[int, ...], chip=None, backend_idx=None):
+        backend_idx = _switch_arg(switch_aware, backend_idx)
         params, calib = state["params"], state["calib"]
         named = dict(params.named_parameters())
         batch = _batch(batch, params.device)
         rng = tuple(rng)
 
         def grad_one(mb, r):
-            loss = _loss(params, mb, model, approx, calib, r, tcfg, chip)
+            loss = _loss(params, mb, model, approx, calib, r, tcfg, chip, backend_idx)
             gs = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
             gs = [torch.zeros_like(t) if g is None else g for g, t in zip(gs, named.values())]
             return dict(zip(named, gs)), loss.detach()
@@ -147,19 +165,22 @@ def make_calibration_step(model: Model, approx: ApproxConfig, tcfg: TrainConfig)
     return step
 
 
-def make_eval_step(model: Model, approx: ApproxConfig):
+def make_eval_step(model: Model, approx: ApproxConfig, *, switch_aware: bool = False):
     """Validation with the bit-accurate emulation (what the hardware would
-    produce): MODEL mode whenever the config has approximate backends.
-    ``step(state, batch, rng, chip=None) -> {"loss", "accuracy"}``."""
+    produce): MODEL mode whenever the config has approximate backends, or
+    is switch-aware (the canonical config has none of its own).
+    ``step(state, batch, rng, chip=None) -> {"loss", "accuracy"}``; with
+    ``switch_aware`` the map comes as ``backend_idx`` after ``chip``."""
     eval_cfg = (dataclasses.replace(approx, mode=TrainMode.MODEL)
-                if approx.approx_backends else approx)
+                if approx.approx_backends or switch_aware else approx)
 
     @torch.no_grad()
-    def step(state, batch, rng: Tuple[int, ...], chip=None):
+    def step(state, batch, rng: Tuple[int, ...], chip=None, backend_idx=None):
+        backend_idx = _switch_arg(switch_aware, backend_idx)
         params = state["params"]
         batch = _batch(batch, params.device)
         out = model.apply(params, batch, approx=eval_cfg, calib=state["calib"], rng=tuple(rng),
-                          remat="none", chip=chip)
+                          remat="none", chip=chip, backend_idx=backend_idx)
         return {"loss": lm_loss(out.logits, batch["labels"]),
                 "accuracy": accuracy(out.logits, batch["labels"])}
 
@@ -171,28 +192,15 @@ def make_eval_step(model: Model, approx: ApproxConfig):
 # ---------------------------------------------------------------------------
 
 
-class StepCache:
-    """The built steps of one model and run, memoised under the
-    reference's key: ``(kind, resolved ApproxConfig, lr_scale,
-    microbatches, chip_aware, switch_aware, bwd_aware)``.  The resolved
-    config is the run's with the requested mode substituted, a frozen
-    dataclass whose hash covers the mode, every backend's params and the
-    site-backend map, so two phases that share a step share one entry.
+class CompiledFnCache:
+    """Built steps memoised under the key of what they compute: the
+    reference's jit cache, which training and the search share.  The
+    port's steps run eagerly, so an entry is built once and never traced;
+    :meth:`stats` reports ``{"built": n}``, the number of distinct steps
+    built (under switch dispatch the search builds at most two: one eval,
+    one blend-grad)."""
 
-    Every step takes the chip as a trailing argument; the key records
-    only *that* a chip is threaded (``chip_aware``, as the reference's jit
-    cache does), never which one: a whole fleet shares one entry.
-
-    The reference jits each entry and counts its traces; the port's steps
-    run eagerly, so there is nothing to trace, and :meth:`stats` reports
-    only ``{"built": n}``, the number of distinct steps built.  The switch-
-    and backward-gate-aware variants raise (ROADMAP A4, A6).
-    """
-
-    def __init__(self, model: Model, approx: ApproxConfig, tcfg: TrainConfig):
-        self.model = model
-        self.approx = approx
-        self.tcfg = tcfg
+    def __init__(self):
         self._fns: Dict[Tuple, Callable] = {}
 
     def get(self, key: Tuple, build: Callable[[], Callable]) -> Callable:
@@ -204,6 +212,33 @@ class StepCache:
 
     def stats(self) -> Dict[str, int]:
         return {"built": len(self._fns)}
+
+
+class StepCache(CompiledFnCache):
+    """The built steps of one model and run, memoised under the
+    reference's key: ``(kind, resolved ApproxConfig, lr_scale,
+    microbatches, chip_aware, switch_aware, bwd_aware)``.  The resolved
+    config is the run's with the requested mode substituted, a frozen
+    dataclass whose hash covers the mode, every backend's params and the
+    site-backend map, so two phases that share a step share one entry.
+
+    Every step takes the chip as a trailing argument; the key records
+    only *that* a chip is threaded (``chip_aware``, as the reference's jit
+    cache does), never which one: a whole fleet shares one entry.  A
+    switch-aware step is keyed on the canonical config
+    (``switch.canonical``), so every map of a mode shares it; its map is
+    its ``backend_idx`` argument.
+
+    The reference jits each entry and counts its traces; the port's steps
+    run eagerly, so :meth:`stats` reports only ``{"built": n}``.  The
+    backward-gate-aware variant raises (ROADMAP A6).
+    """
+
+    def __init__(self, model: Model, approx: ApproxConfig, tcfg: TrainConfig):
+        super().__init__()
+        self.model = model
+        self.approx = approx
+        self.tcfg = tcfg
 
     # ------------------------------------------------------------------
     def _resolve(self, mode: Optional[TrainMode]) -> ApproxConfig:
@@ -220,30 +255,30 @@ class StepCache:
             microbatches=microbatches or self.tcfg.microbatches,
         )
 
-    @staticmethod
-    def _refuse(switch_aware=False, bwd_aware=False):
-        for asked, what, item in ((switch_aware, "switch", "A4"),
-                                  (bwd_aware, "backward-gate", "A6")):
-            if asked:
-                raise NotImplementedError(
-                    f"{what}-aware steps are not yet ported to repro_torch (ROADMAP {item})")
-
     # ------------------------------------------------------------------
     def train(self, mode: Optional[TrainMode] = None, *, lr_scale: float = 1.0,
               microbatches: int = 0, chip_aware: bool = False, switch_aware: bool = False,
               bwd_aware: bool = False) -> Callable:
-        self._refuse(switch_aware, bwd_aware)
+        if bwd_aware:
+            raise NotImplementedError(
+                "backward-gate-aware steps are not yet ported to repro_torch (ROADMAP A6)")
         approx = self._resolve(mode)
+        if switch_aware:
+            approx = switch_lib.canonical(approx)
         key = ("train", approx, lr_scale, microbatches or self.tcfg.microbatches,
                chip_aware, switch_aware, bwd_aware)
         return self.get(key, lambda: make_train_step(
-            self.model, approx, self._tcfg_for(lr_scale, microbatches)))
+            self.model, approx, self._tcfg_for(lr_scale, microbatches),
+            switch_aware=switch_aware))
 
     def calibration(self, *, chip_aware: bool = False) -> Callable:
+        # calibration stays static: per-(site, backend) stat shapes cannot
+        # follow a runtime map
         key = ("calibrate", self.approx, 1.0, self.tcfg.microbatches, chip_aware)
         return self.get(key, lambda: make_calibration_step(self.model, self.approx, self.tcfg))
 
     def eval(self, *, chip_aware: bool = False, switch_aware: bool = False) -> Callable:
-        self._refuse(switch_aware)
-        key = ("eval", self.approx, 1.0, self.tcfg.microbatches, chip_aware, switch_aware)
-        return self.get(key, lambda: make_eval_step(self.model, self.approx))
+        approx = switch_lib.canonical(self.approx) if switch_aware else self.approx
+        key = ("eval", approx, 1.0, self.tcfg.microbatches, chip_aware, switch_aware)
+        return self.get(key, lambda: make_eval_step(self.model, approx,
+                                                    switch_aware=switch_aware))

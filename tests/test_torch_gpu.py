@@ -1267,3 +1267,86 @@ def test_fused_kernels_with_a_real_chip(cuda, backend, N):
     composed = apply_epilogue(cuda_fn({}), colgain=epi["colgain"], coladd=epi["coladd"])
     composed = composed - calibration.predict_mean(stats, composed).to(dtype)
     torch.testing.assert_close(got, composed, rtol=0, atol=0)
+
+
+SWITCH_BACKENDS = ["exact", "log_mult", "approx_mult", "sc", "analog"]
+
+
+def _switch_cfg(backend):
+    from repro_torch.configs.base import ApproxConfig, Backend, TrainMode
+
+    return ApproxConfig(backend=Backend(backend), mode=TrainMode.MODEL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("backend", SWITCH_BACKENDS)
+def test_switch_dense_bitwise_static(cuda, backend, fused):
+    """dense() at a full-width site (mlp_up, 2048 -> 11008, bf16) under a
+    per-site index, and under a per-row index whose rows cycle through the
+    five backends, is bitwise the static path, at 4 decode rows and 64
+    prefill rows, fused and composed: the same branch bodies and kernels."""
+    import numpy as np
+
+    from repro_torch.core import switch
+    from repro_torch.core.approx_linear import ApproxCtx, dense
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    w = (torch.randn(2048, 11008, generator=g, device=cuda) * 0.02).to(torch.bfloat16)
+    order = [backend] + [b for b in SWITCH_BACKENDS if b != backend]
+    canon = switch.canonical(_switch_cfg(backend))
+    for M in (4, 64):
+        x = torch.randn(M, 2048, generator=g, device=cuda).to(torch.bfloat16)
+
+        def run(cfg, site_idx=None):
+            ctx = ApproxCtx(cfg=cfg, fused=fused, rng=(5, M), site_idx=site_idx)
+            return dense(x, w, site="mlp_up", ctx=ctx)
+
+        want = run(_switch_cfg(backend))
+        got = run(canon, switch.site_indices(_switch_cfg(backend)))
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        rows = np.stack([switch.site_indices(_switch_cfg(order[r % 5])) for r in range(M)])
+        mixed = run(canon, rows)
+        for b in order:
+            sel = [r for r in range(M) if order[r % 5] == b]
+            torch.testing.assert_close(mixed[sel], run(_switch_cfg(b))[sel], rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_switch_per_row_selector_waits_for_no_host(cuda):
+    """A merged decode projection over approx_mult, log_mult and exact rows
+    makes the host wait for the card 0 times (torch's sync debug mode): the
+    row selector goes up once per ctx from pinned memory, and the branches
+    to run are read from the host's index rows."""
+    import warnings
+
+    import numpy as np
+
+    from repro_torch.core import switch
+    from repro_torch.core.approx_linear import ApproxCtx, dense
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    w = (torch.randn(2048, 11008, generator=g, device=cuda) * 0.02).to(torch.bfloat16)
+    x = torch.randn(4, 2048, generator=g, device=cuda).to(torch.bfloat16)
+    rows = np.stack([switch.site_indices(_switch_cfg(b))
+                     for b in ("approx_mult", "log_mult", "exact", "approx_mult")])
+    canon = switch.canonical(_switch_cfg("log_mult"))
+
+    def call():
+        ctx = ApproxCtx(cfg=canon, fused=True, rng=(1,), site_idx=rows)
+        for site in ("attn_q", "mlp_up"):
+            dense(x, w, site=site, ctx=ctx)
+
+    call()  # kernels loaded, tables allocated
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the mode's own once-a-process notice ("a prototype feature ...") is no wait
+    waits = [str(w.message) for w in caught
+             if "synchronizing" in str(w.message) and "prototype" not in str(w.message)]
+    assert not waits, waits

@@ -296,8 +296,9 @@ def test_calibration_controller_matches_reference(name, losses):
 def test_step_cache_keys_and_refusals():
     """Phases that share (mode, lr scale, microbatches) share one built
     step; a chip-aware step is an entry of its own, one for every chip;
-    the switch- and backward-gate-aware variants raise, naming their
-    ROADMAP items; ``stats`` counts built steps only."""
+    a switch-aware step is keyed on the canonical config, so every map
+    shares it; the backward-gate-aware variant raises, naming its ROADMAP
+    item; ``stats`` counts built steps only."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import build_model
     from repro_torch.training.steps import StepCache
@@ -316,11 +317,18 @@ def test_step_cache_keys_and_refusals():
     assert chip_step is not cache.train(tb.TrainMode.MODEL)
     assert cache.calibration(chip_aware=True) is not cache.calibration()
     assert cache.stats() == {"built": 7}
-    for kw, item in (({"switch_aware": True}, "A4"), ({"bwd_aware": True}, "A6")):
-        with pytest.raises(NotImplementedError, match=item):
-            cache.train(tb.TrainMode.MODEL, **kw)
-    with pytest.raises(NotImplementedError, match="A4"):
-        cache.eval(switch_aware=True)
+    # switch-aware steps are keyed on the canonical config: one per mode,
+    # whatever the map (the map is the step's backend_idx argument)
+    sw = cache.train(tb.TrainMode.MODEL, switch_aware=True)
+    assert sw is not cache.train(tb.TrainMode.MODEL)
+    other = StepCache(cache.model, dataclasses.replace(ta, site_backends=(("mlp_*", "sc"),)),
+                      tb.TrainConfig())
+    other._fns = cache._fns  # one store: the canonical keys collide, the static ones do not
+    assert other.train(tb.TrainMode.MODEL, switch_aware=True) is sw
+    assert other.eval(switch_aware=True) is cache.eval(switch_aware=True)
+    assert cache.stats() == {"built": 9}
+    with pytest.raises(NotImplementedError, match="A6"):
+        cache.train(tb.TrainMode.MODEL, bwd_aware=True)
 
 
 def test_wrap_block_policies():
