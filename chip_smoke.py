@@ -69,10 +69,11 @@ checkout of the repository.  Phases, each synchronised before the next:
    default became ``"block"``, so their figures stay comparable.
 6. The phase-plan Trainer (``repro_torch.runtime.trainer``) on the engine
    phase's weights, the old states freed first: qwen2.5-3b at full width
-   with its first 6 layers (the run saves two checkpoint generations, and
-   the card's host takes at most 45 GiB of disk writes a run; a
-   generation of the 36-layer state is 47.6 GB, of 6 layers 15.2 GB; the
-   phase checks the disk first and fails if two do not fit), analog (arrays of 16, a 4-bit ADC), batch 4 x 64 tokens,
+   with its first 4 layers (the run saves two checkpoint generations here
+   and two in phase 12, and the card's host takes at most 45 GiB of disk
+   writes a run; a generation of the 36-layer state is 47.6 GB, of 4
+   layers 13.0 GB; the phase checks the disk first and fails if two do
+   not fit), analog (arrays of 16, a 4-bit ADC), batch 4 x 64 tokens,
    ``paper_schedule(10)`` (exact 1, INJECT 7 with adaptive calibration,
    MODEL 2), ``remat="block"``, a checkpoint every 5 steps keeping one,
    and a fault injected once at step 7.  One ``[trainer]`` line a step
@@ -111,7 +112,7 @@ checkout of the repository.  Phases, each synchronised before the next:
 8. The static-batch baseline (``run_static_baseline``, waves of 4
    padded prompts fed token by token) against the engine (warm, fused) on
    one queue of 6 exact requests at full width: tok/s of each.
-9. A variation-aware Trainer phase at full width with its first 6 layers
+9. A variation-aware Trainer phase at full width with its first 4 layers
    (as phase 6): analog, INJECT 2 steps calibrating every step, then
    ``Phase(MODEL, fleet=2)`` for 3 steps, ``remat="none"``, no checkpoint
    written.  It asserts 3 fleet steps, the chips 0, 1, 0 of the fleet
@@ -149,9 +150,34 @@ checkout of the repository.  Phases, each synchronised before the next:
    all four backends; on approx_mult and log_mult only, which must wait
    for the host 0 times) beside the static lanes' steps.
 
+12. The approximate backward and the compressed optimizer state at full
+   width, on the engine phase's weights (``[bwd]`` lines).  (b) The
+   sensitivity gate (``search.sensitivity.backward_gate``, analog probes,
+   4 x 64 tokens, 3 of 4 sites opened), derived twice through one step
+   cache: the wall seconds, the mask, one step built.  (a) Train steps
+   with the gate as an argument (``make_train_step(bwd_aware=True)``,
+   bf16 optimizer state, learning rate 0 so every step starts from the
+   same weights) at 36 layers: MODEL on approx_mult (K1) and on analog
+   (arrays of 16, K6), INJECT on analog, each under the gate closed, open
+   and the sensitivity gate: the loss bitwise across the gates, the
+   gradient norm finite and moved by the open gate, wall and device ms,
+   launches, device ms by kernel group, host waits (an open gate adds
+   none) and peak memory.  (d) The Trainer with ``optim_compress="sm3"``
+   at 4 layers: exact 2 steps, INJECT 3 with calibration every 2 and
+   ``backward="approx"``, MODEL 3 with ``backward="auto"`` refreshing
+   every 2, a checkpoint every 4 steps and a fault at step 6: one
+   restart, the restore from step 4, steps 4 and 5 replayed bitwise, the
+   gate's refreshes and events the reference's rule, one rounding launch
+   per parameter a step.  (c) One AdamW update under each of ``none``,
+   ``bf16`` and ``sm3`` at 36 layers on one exact backward's gradients:
+   ``state_bytes``, wall and device ms of the update, peak memory, and
+   a middle layer's attn_q first moment held bitwise against the plain
+   rounding on the CPU from the same float32 EMA.  The rounding entry of
+   ``prng.cu`` is held bitwise against its plain version in phase 2.
+
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
-(launches per phase, ``search_launches`` and ``switch_launches``
-included), and last ``{"ok": true, "device": {...}}``.
+(launches per phase, ``search_launches``, ``switch_launches`` and
+``bwd_launches`` included), and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -237,7 +263,11 @@ KERNEL_SOURCES = {
 }
 # the Gaussian noise of INJECT mode: the reference's jax.random.normal in
 # calibration.sample_error (not a Pallas kernel); on the training path only
-TRAIN_KERNELS = {"normal_draws": ("prng.cu", "../core/calibration.py:118")}
+TRAIN_KERNELS = {"normal_draws": ("prng.cu", "../core/calibration.py:118"),
+                 # AdamW's stochastically rounded bf16 first moment: the
+                 # reference's jax.random.randint and bit ops (not a Pallas
+                 # kernel); on the training path only
+                 "sr_bf16": ("prng.cu", "../optim/adamw.py:86")}
 # the kernels the serving path launches (the integer-operand entries of K1
 # and K2, K4's one-polarity entry on given planes and its packed-words
 # entry are checks off the path)
@@ -1069,11 +1099,13 @@ def phase_train_backends(dev, cfg, params):
 
 
 # the depth of phase_trainer's model.  The run saves two generations of
-# its train state, and the card's host takes at most WRITE_BUDGET bytes of
-# disk writes in one run (deleted files count too): at 6 layers a
-# generation is 15.2 GB; at 36 it would be 47.6 GB
-TRAINER_LAYERS = 6
+# its train state, and phase_bwd two of its own, and the card's host takes
+# at most WRITE_BUDGET bytes of disk writes in one run (deleted files count
+# too): at 4 layers a generation is 13.0 GB, at 6 15.2 GB; at 36 it would
+# be 47.6 GB
+TRAINER_LAYERS = 4
 WRITE_BUDGET = 45 * 2**30
+DISK = {"written": 0}  # checkpoint bytes written in this run, deleted ones included
 TRAINER_FAULT_STEP = 7
 
 
@@ -1087,11 +1119,11 @@ def _step_recorder(trainer, log):
     def recording_get(key, build_fn):
         fn = get(key, build_fn)
 
-        def recorded(*args):
+        def recorded(*args, **kwargs):
             torch.cuda.synchronize()
             before = dict(build.LAUNCHES)
             t0 = time.perf_counter()
-            out = fn(*args)
+            out = fn(*args, **kwargs)
             torch.cuda.synchronize()
             log.append({"kind": key[0], "mode": key[1].mode.value,
                         "ms": (time.perf_counter() - t0) * 1e3,
@@ -1163,6 +1195,7 @@ def phase_trainer(dev, cfg, params, card: str, train_peak_gib: float):
         launches = {k: v for k, v in build.LAUNCHES.items() if v}
         peak_run = torch.cuda.max_memory_allocated(dev) / 2**30
         events = list(trainer.ckpt.events)
+        DISK["written"] += sum(e["bytes"] for e in events if e["op"] == "save")
         plan = trainer.plan
         # one attempt a row: its calibration (if any) and its train step
         rows, calls = [], iter(log)
@@ -1717,6 +1750,370 @@ def phase_trainer_fleet(dev, cfg, params, card: str):
     return launches
 
 
+# the approximate backward's phase: the sensitivity gate's open share,
+# the depth of its Trainer (two checkpoint generations of the sm3 state,
+# 7.4 GB each at 4 layers, beside phase_trainer's; the card's host takes
+# WRITE_BUDGET bytes of writes a run) and the step its fault comes at
+BWD_GATE_FRAC = 0.75
+BWD_TRAINER_LAYERS = 4
+BWD_FAULT_STEP = 6
+BWD_PLAN = ("exact:2", "inject:3:calib=every_n,every=2,bwd=approx,gate=0.75",
+            "model:3:bwd=auto,gate=0.75,gate_every=2")
+ROUND_OPS = THREEFRY_OPS + 4  # integer ops an element: its block, the add, mask and shift
+
+
+def phase_round(dev):
+    """The rounding entry of prng.cu (AdamW's bf16 first moment, rounded
+    stochastically) against its plain version, bitwise: on the card at a
+    layer's attention and MLP shapes (a layer's slice of its stacked leaf,
+    at the slice's counters), on the CPU at a small shape; the kernel alone
+    also at the embedding's [151936, 2048].  Timed."""
+    from repro_torch.kernels import ops, prng
+
+    words = (0x5F3759DF, 3, 5, 1)
+    path = torch.tensor(prng.path_words(words), dtype=torch.int32, device=dev)
+    key = prng.key_of_path(words)
+    g = torch.Generator(device=dev).manual_seed(3)
+    summary = None
+    for shape, offset in (((2048, 2048), 7 * 2048 * 2048), ((2048, 11008), 0),
+                          ((151936, 2048), 0), ((7, 13), 2**32 - 40)):
+        x = torch.randn(shape, generator=g, device=dev) * 1e-3
+        got = ops.stochastic_round_bf16(x, path, offset)
+        n = x.numel()
+        plain_ms = None
+        if n < 2**25:
+            _hold("sr_bf16", shape, got, prng.stochastic_round_bf16(x, key, offset))
+            plain_ms = cuda_ms(lambda: prng.stochastic_round_bf16(x, key, offset), 1)
+        if n < 2**10:
+            _hold("sr_bf16", shape, got.cpu(), ops.stochastic_round_bf16(x.cpu(), path.cpu(),
+                                                                         offset))
+        b_ms, b_by = bound(6.0 * n, ROUND_OPS * n, INT_OPS_S)
+        row = {"name": "sr_bf16", "shape": list(shape), "offset": offset, "max_abs_err": 0.0,
+               "ms": cuda_ms(lambda: ops.stochastic_round_bf16(x, path, offset), 10),
+               "device_ms": device_ms(lambda: ops.stochastic_round_bf16(x, path, offset), 10,
+                                      "repro_prng::"),
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "bound_terms_ms": {"bytes": 6.0 * n / HBM_BYTES_S * 1e3,
+                                  "operations": ROUND_OPS * n / INT_OPS_S * 1e3},
+               "library_ms": None}
+        print(f"[kernels] {json.dumps(row)}", flush=True)
+        if shape == (2048, 11008):
+            summary = row
+        del x, got
+    return {"sr_bf16": summary}
+
+
+def _gate_events(plan, steps):
+    """The reference's rule for the sensitivity gate over the steps a run
+    took (replays included): a phase with ``backward="approx"`` derives it
+    at its first step, ``"auto"`` at the first step of every ``gate_every``
+    of the phase; each phase keeps its last (epoch, mask)."""
+    cached, events = {}, []
+    for s in steps:
+        index, phase, sip = plan.phase_at(s)
+        if phase.backward == "exact":
+            continue
+        epoch = sip // phase.gate_every if phase.backward == "auto" else 0
+        if cached.get(index) != epoch:
+            cached[index] = epoch
+            events.append(s)
+    return events
+
+
+def phase_bwd(dev, cfg, params, card: str):
+    """The approximate backward and the compressed optimizer state at full
+    width (see the module docstring, phase 12).  Returns the launches of
+    the port's kernels in its runs."""
+    import shutil
+
+    from repro_torch.configs.base import TrainConfig, TrainMode, parse_phase_specs
+    from repro_torch.convert import train_state_layout
+    from repro_torch.core import switch as switch_lib
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import build, prng
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer
+    from repro_torch.search import sensitivity
+    from repro_torch.training import steps as step_lib
+
+    total = {}
+
+    def count(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    model = build_model(cfg)
+    data = SyntheticLM(cfg.vocab_size, seq_len=TRAIN_T, global_batch=TRAIN_B, seed=3)
+    batch = data.batch_at(0)
+    n_sites = len(switch_lib.SITE_ORDER)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    parts = {}  # wall seconds of each part of the phase
+    t_part = time.perf_counter()
+    # (b) the sensitivity gate, twice through one step cache
+    base = _train_approx("analog", TrainMode.INJECT)
+    fns = step_lib.CompiledFnCache()
+    masks, walls = [], []
+    for _ in range(2):
+        mask, wall, launches = _timed(lambda: sensitivity.backward_gate(
+            model, params, batch, base, frac=BWD_GATE_FRAC, fns=fns))
+        masks.append(mask)
+        walls.append(wall / 1e3)
+        count(launches)
+        built = fns.stats()["built"]
+    if built != 1 or not np.array_equal(masks[0], masks[1]):
+        raise AssertionError(f"[bwd] gate: built {fns.stats()}, masks {masks}")
+    open_sites = [s for s in switch_lib.SITE_ORDER if masks[0][switch_lib.site_pos(s)]]
+    row = {"frac": BWD_GATE_FRAC, "probe": "analog(array 16, adc 4 bits)", "wall_s": walls,
+           "built": built, "open_sites": open_sites, "mask": masks[0].tolist(),
+           "launches": launches, "card": card}
+    print(f"[bwd] gate {json.dumps(row)}", flush=True)
+    if len(open_sites) != 8 - int(np.ceil((1 - BWD_GATE_FRAC) * 8)):
+        raise AssertionError(f"[bwd] gate opens {open_sites}")
+
+    parts["gate"], t_part = time.perf_counter() - t_part, time.perf_counter()
+    # (a) gated train steps at 36 layers under three gates; learning rate 0,
+    # so every step starts from the same weights and the losses must agree
+    # bit for bit
+    gates = {"closed": np.zeros(n_sites, np.int32), "open": np.ones(n_sites, np.int32),
+             "sensitivity": masks[0]}
+    tcfg = TrainConfig(total_steps=10, warmup_steps=1, learning_rate=0.0, weight_decay=0.0,
+                       remat="none", optim_compress="bf16")
+    inject = _train_approx("analog", TrainMode.INJECT)
+    state = step_lib.init_train_state(model, 0, inject, tcfg, device=dev, params=params)
+    state, _ = step_lib.make_calibration_step(model, inject, tcfg)(state, batch, (1, 0))
+    steps = []
+    for mode, be in ((TrainMode.MODEL, "approx_mult"), (TrainMode.MODEL, "analog"),
+                     (TrainMode.INJECT, "analog")):
+        step = step_lib.make_train_step(model, _train_approx(be, mode), tcfg, bwd_aware=True)
+        by_gate = {}
+        for gname, gate in gates.items():
+            def call(_step=step, _gate=gate):
+                return _step(state, batch, (1, 0), bwd_gate=_gate)[1]
+
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats(dev)
+            m, wall, launches = _timed(call)
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            count(launches)
+            dev_ms, by_group = _traced_ms(call)
+            syncs = _syncs(call)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            if not (np.isfinite(loss) and np.isfinite(gnorm)):
+                raise AssertionError(f"[bwd] {be} {mode.value} gate {gname}: loss {loss}, "
+                                     f"grad norm {gnorm}")
+            by_gate[gname] = row = {
+                "step": f"{mode.value}/{be}", "gate": gname,
+                "open_sites": int(np.asarray(gate).sum()), "loss": loss, "grad_norm": gnorm,
+                "wall_ms": wall, "device_ms": dev_ms, "busy": dev_ms / wall,
+                "by_group_ms": by_group, "launches": launches, "host_waits": syncs,
+                "peak_gib": peak, "card": card}
+            print(f"[bwd] step {json.dumps(row)}", flush=True)
+        rows = list(by_gate.values())
+        if len({r["loss"] for r in rows}) != 1:
+            raise AssertionError(f"[bwd] {mode.value}/{be}: the losses differ across gates: "
+                                 f"{[r['loss'] for r in rows]}")
+        if any(r["host_waits"] != by_gate["closed"]["host_waits"] for r in rows):
+            raise AssertionError(f"[bwd] {mode.value}/{be}: an open gate waits for the host "
+                                 f"{[r['host_waits'] for r in rows]}")
+        if by_gate["open"]["grad_norm"] == by_gate["closed"]["grad_norm"]:
+            raise AssertionError(f"[bwd] {mode.value}/{be}: the open gate changed no gradient")
+        kernel = ("analog_matmul" if be == "analog" else
+                  "elementwise_matmul[approx_mult,quantized]")
+        need = {"normal_draws", "sr_bf16"} if mode == TrainMode.INJECT else {kernel, "sr_bf16"}
+        if any(not r["launches"].get(k) for r in rows for k in need):
+            raise AssertionError(f"[bwd] {mode.value}/{be}: launches {rows[0]['launches']}")
+        steps.extend(rows)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the loss's gradient norm by parameter group and by layer under the
+    # gates, on the weights this phase inherits (the earlier phases trained
+    # them in place): where the open gate's rise comes from
+    # (tools/bwd_site_norms.py does the same on seed weights)
+    named = dict(params.named_parameters())
+    probe = _train_approx("approx_mult", TrainMode.MODEL)
+    for gname, gate in (("closed", gates["closed"]), ("open", gates["open"]),
+                        ("only lm_head", switch_lib.backward_gate(approx_sites=("lm_head",))),
+                        ("all but lm_head", switch_lib.backward_gate(exact_sites=("lm_head",)))):
+        for p in named.values():
+            p.requires_grad_(True)
+        loss = step_lib._loss(params, step_lib._batch(batch, dev), model, probe, None, (1, 0),
+                              TrainConfig(remat="none"), bwd_gate=gate)
+        grads = torch.autograd.grad(loss, list(named.values()))
+        for p in named.values():
+            p.requires_grad_(False)
+        groups, layers = {}, [0.0] * cfg.n_layers
+        for n, g in zip(named, grads):
+            sq = float(g.float().square().sum())
+            parts_n = n.split(".")
+            key = ".".join(parts_n[2:]) if parts_n[0] == "layers" else n
+            groups[key] = groups.get(key, 0.0) + sq
+            if parts_n[0] == "layers":
+                layers[int(parts_n[1])] += sq
+        del grads
+        row = {"step": "model/approx_mult", "gate": gname, "loss": float(loss.detach()),
+               "grad_norm": sum(groups.values()) ** 0.5,
+               "by_group": {k: v ** 0.5 for k, v in sorted(groups.items())},
+               "by_layer": [v ** 0.5 for v in layers], "card": card}
+        del loss
+        print(f"[bwd] norms {json.dumps(row)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    parts["steps"], t_part = time.perf_counter() - t_part, time.perf_counter()
+    # (d) the Trainer under sm3 with exact, approx and auto backward phases,
+    # a fault after a checkpoint, the restore and the replay
+    cfg_l = dataclasses.replace(cfg, n_layers=BWD_TRAINER_LAYERS)
+    params_l = Transformer(params.embed, params.final_norm,
+                           list(params.layers[:BWD_TRAINER_LAYERS]), params.lm_head)
+    model_l = build_model(cfg_l)
+    tcfg = TrainConfig(total_steps=8, warmup_steps=1, learning_rate=2e-3,
+                       phases=parse_phase_specs(BWD_PLAN), remat="none", checkpoint_every=4,
+                       keep_checkpoints=1, optim_compress="sm3")
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "bwd_trainer_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    state = step_lib.init_train_state(model_l, 0, inject, tcfg, device=dev, params=params_l)
+    generation = sum(int(np.prod(leaf.shape)) * torch.empty((), dtype=leaf.dtype).element_size()
+                     for leaf in _layout_leaves(train_state_layout(state)))
+    free = shutil.disk_usage(ckpt_dir).free
+    print(f"[bwd] trainer: qwen2.5-3b full width, {BWD_TRAINER_LAYERS} layers, sm3: a "
+          f"generation {generation} bytes, {DISK['written']} written before, {free} free",
+          flush=True)
+    if DISK["written"] + 2 * generation > min(free, WRITE_BUDGET * 9 // 10):
+        raise AssertionError(f"[bwd] two generations of {generation} bytes exceed the disk "
+                             f"({free} free) or the run's writes ({DISK['written']} of "
+                             f"{WRITE_BUDGET})")
+
+    def fault(s):
+        if s == BWD_FAULT_STEP and not faults:
+            faults.append(s)
+            raise RuntimeError(f"injected fault at step {s}")
+
+    faults, log = [], []
+    trainer = Trainer(model_l, inject, tcfg, data, str(ckpt_dir), seed=0, fault_hook=fault,
+                      state=state)
+    _step_recorder(trainer, log)
+    try:
+        build.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        report = trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        count(launches)
+        peak_run = torch.cuda.max_memory_allocated(dev) / 2**30
+        events = list(trainer.ckpt.events)
+        DISK["written"] += sum(e["bytes"] for e in events if e["op"] == "save")
+    finally:
+        trainer.ckpt.wait()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    plan = trainer.plan
+    for entry in log:
+        print(f"[bwd] trainer call {json.dumps(entry)}", flush=True)
+    for e in events:
+        print(f"[bwd] trainer checkpoint {json.dumps(e)}", flush=True)
+    want_events = _gate_events(plan, report.steps)
+    want_bwd = {}
+    for s in report.steps:
+        b = plan.phase_at(s)[1].backward
+        want_bwd[b] = want_bwd.get(b, 0) + 1
+    first = {}
+    for s, loss in zip(report.steps, report.losses):
+        if first.setdefault(s, loss) != loss:
+            raise AssertionError(f"[bwd] trainer: replayed step {s}: {loss} != {first[s]}")
+    replayed = sorted({s for s in report.steps if report.steps.count(s) > 1})
+    restored = [e["step"] for e in events if e["op"] == "restore"]
+    train_calls = [e for e in log if e["kind"] == "train"]
+    if (report.restarts != 1 or restored != [4] or replayed != [4, 5]
+            or [s for s, _ in report.gate_events] != want_events
+            or report.gate_refreshes != len(want_events)
+            or report.backward_steps != want_bwd or report.compile_stats["built"] != 5
+            or not all(np.isfinite(report.losses))
+            or any(e["launches"].get("sr_bf16", 0) != len(list(params_l.parameters()))
+                   for e in train_calls)):
+        raise AssertionError(f"[bwd] trainer: restarts {report.restarts}, restored {restored}, "
+                             f"replayed {replayed}, gate events {report.gate_events} (the "
+                             f"rule: {want_events}), backward steps {report.backward_steps}, "
+                             f"built {report.compile_stats}, losses {report.losses}")
+    trainer_summary = {
+        "layers": BWD_TRAINER_LAYERS, "plan": plan.describe(), "optim_compress": "sm3",
+        "steps": report.steps, "losses": report.losses, "step_s": report.step_times,
+        "restarts": report.restarts, "replayed": replayed,
+        "gate_refreshes": report.gate_refreshes, "gate_events": report.gate_events,
+        "gate_events_rule": want_events, "backward_steps": report.backward_steps,
+        "compile_stats": report.compile_stats, "run_wall_s": wall, "peak_gib": peak_run,
+        "generation_bytes": generation, "launches": launches, "card": card}
+    print(f"[bwd] trainer summary {json.dumps(trainer_summary)}", flush=True)
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    parts["trainer"], t_part = time.perf_counter() - t_part, time.perf_counter()
+    # (c) one AdamW update a compression at 36 layers, on the gradients of
+    # one exact backward; one layer's attn_q m held against the plain
+    # rounding on the CPU from the same float32 EMA
+    named = dict(params.named_parameters())
+    for p in named.values():
+        p.requires_grad_(True)
+    exact = _train_approx("exact", TrainMode.NO_MODEL)
+    loss = step_lib._loss(params, step_lib._batch(batch, dev), model, exact, None, (1, 0),
+                          TrainConfig(remat="none"))
+    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    del loss
+    for p in named.values():
+        p.requires_grad_(False)
+    layer = cfg.n_layers // 2
+    name = f"layers.{layer}.attn.wq"
+    adam_rows = []
+    for compress in ("none", "bf16", "sm3"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        tc = TrainConfig(optim_compress=compress, learning_rate=2e-3, warmup_steps=1)
+        opt = adamw.adamw_init(named, compress)
+        nbytes = adamw.state_bytes(opt)
+        _, wall, launches = _timed(lambda: adamw.adamw_update(grads, opt, named, tc))
+        count(launches)
+        m_prev = opt["m"][name].float().cpu()
+        gnorm = adamw.tree_global_norm(grads[n] for n in named)
+        scale = torch.clamp_max(adamw._f32(tc.grad_clip, gnorm) / (gnorm + 1e-9), 1.0).cpu()
+        adamw.adamw_update(grads, opt, named, tc)
+        if compress != "none":
+            leaf, sl = adamw._leaf_slots(tuple(named))[name]
+            m_f32 = tc.beta1 * m_prev + (1 - tc.beta1) * (grads[name].float().cpu() * scale)
+            words = (adamw.ROUND_SEED, int(opt["count"]), leaf, 1)
+            want = prng.stochastic_round_bf16(m_f32, prng.key_of_path(words),
+                                              sl * m_f32.numel())
+            _hold("sr_bf16", f"m of {name}", opt["m"][name].cpu(), want)
+        dev_ms, by_group = _traced_ms(lambda: adamw.adamw_update(grads, opt, named, tc))
+        row = {"optim_compress": compress, "state_bytes": nbytes, "update_wall_ms": wall,
+               "update_device_ms": dev_ms, "by_group_ms": by_group, "launches": launches,
+               "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+               "m_slice_held": None if compress == "none" else name, "card": card}
+        adam_rows.append(row)
+        print(f"[bwd] adamw {json.dumps(row)}", flush=True)
+        del opt
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["adamw"] = time.perf_counter() - t_part
+    sizes = [r["state_bytes"] for r in adam_rows]
+    if not sizes[0] > sizes[1] > sizes[2]:
+        raise AssertionError(f"[bwd] state bytes {sizes}")
+    summary = {"arch": cfg.name, "layers": cfg.n_layers, "batch": [TRAIN_B, TRAIN_T],
+               "gate_wall_s": walls, "state_bytes": dict(zip(("none", "bf16", "sm3"), sizes)),
+               "trainer_layers": BWD_TRAINER_LAYERS, "parts_s": parts, "launches": total,
+               "card": card}
+    print(f"[bwd] summary {json.dumps(summary)}", flush=True)
+    return total
+
+
 SEARCH_BACKENDS = ("analog", "log_mult", "approx_mult")  # the search CLI's default world
 SEARCH_B, SEARCH_T = 8, 32  # the search CLI's profiling batch
 SEARCH_BASE_STEPS = 2       # exact base steps (the CLI's default is 60)
@@ -2023,6 +2420,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = smi()
     print(card, flush=True)
+    t_run = time.perf_counter()
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
 
@@ -2063,6 +2461,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[switch] the phase: {time.perf_counter() - t0:.1f}s", flush=True)
     summary.update(phase_normal(dev))
+    summary.update(phase_round(dev))
     train_launches, train_peak = phase_train(dev, cfg, params, card)
     for k, v in phase_train_backends(dev, cfg, params).items():
         train_launches[k] = train_launches.get(k, 0) + v
@@ -2070,6 +2469,9 @@ def main() -> int:
     t0 = time.perf_counter()
     trainer_fleet_launches = phase_trainer_fleet(dev, cfg, params, card)
     print(f"[trainer-fleet] the phase: {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    bwd_launches = phase_bwd(dev, cfg, params, card)
+    print(f"[bwd] the phase: {time.perf_counter() - t0:.1f}s", flush=True)
     del params
     torch.cuda.empty_cache()
     phase_train_reference(dev)
@@ -2078,6 +2480,7 @@ def main() -> int:
     print(f"[trainer] launches {json.dumps(trainer_launches)}", flush=True)
     print(f"[trainer-fleet] launches {json.dumps(trainer_fleet_launches)}", flush=True)
     print(f"[search] launches {json.dumps(search_launches)}", flush=True)
+    print(f"[bwd] launches {json.dumps(bwd_launches)}", flush=True)
 
     kernels = []
     for name in PATH_KERNELS + tuple(TRAIN_KERNELS):
@@ -2090,7 +2493,8 @@ def main() -> int:
             "replaces": os.path.normpath(f"src/repro/kernels/{replaces}"),
             "launches": sum(d.get(name, 0) for d in (launches, train_launches, trainer_launches,
                                                       fleet_launches, trainer_fleet_launches,
-                                                      search_launches, switch_launches)),
+                                                      search_launches, switch_launches,
+                                                      bwd_launches)),
             "engine_launches": launches.get(name, 0),
             "train_launches": train_launches.get(name, 0),
             "trainer_launches": trainer_launches.get(name, 0),
@@ -2098,6 +2502,7 @@ def main() -> int:
             "trainer_fleet_launches": trainer_fleet_launches.get(name, 0),
             "search_launches": search_launches.get(name, 0),
             "switch_launches": switch_launches.get(name, 0),
+            "bwd_launches": bwd_launches.get(name, 0),
             "shape": row["shape"],
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
@@ -2114,6 +2519,7 @@ def main() -> int:
     if foreign:
         raise AssertionError(f"modules imported that the port must not need: {foreign[:5]}")
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"[run] {time.perf_counter() - t_run:.1f}s", flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

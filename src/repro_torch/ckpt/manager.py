@@ -40,16 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.convert import Stacked
-
-
-def flatten(tree, prefix: str = "") -> List[Tuple[str, Any]]:
-    """``(key path, leaf)`` of a tree of nested dicts, in the order and
-    with the paths of ``jax.tree_util`` (sorted keys)."""
-    out = []
-    for k in sorted(tree):
-        v, path = tree[k], f"{prefix}[{k!r}]"
-        out.extend(flatten(v, path) if isinstance(v, dict) else [(path, v)])
-    return out
+from repro_torch.layout import flatten
 
 
 def _unflatten(tree, leaves: Iterator):

@@ -128,11 +128,10 @@ class Phase:
     function regardless of step budgets or calibration policy.
 
     ``fleet > 0`` trains each step against a chip of a sampled fleet
-    (variation-aware training).  ``backward != "exact"`` is kept
-    constructible, so that a plan's ``describe()`` and the cache key read
-    as the reference's; the port's
-    :class:`~repro_torch.runtime.trainer.Trainer` refuses such phases until
-    the gated approximate backward (ROADMAP A6) is ported.
+    (variation-aware training).  ``backward`` gates the approximate
+    backward: ``"approx"`` derives the sensitivity gate once at the
+    phase's entry, ``"auto"`` every ``gate_every`` steps, and the open
+    sites run their gradient matmuls on the int8 grid.
     """
 
     mode: TrainMode
@@ -148,7 +147,7 @@ class Phase:
                                    # sampled device instances;
                                    # 0 => nominal hardware
     backward: str = "exact"        # "exact" | "approx" | "auto": gated
-                                   # int8 backward (ROADMAP A6);
+                                   # int8 backward;
                                    # "auto" re-derives the sensitivity
                                    # gate every `gate_every` steps
     gate_frac: float = 0.75        # fraction of sites gated approximate
@@ -501,9 +500,10 @@ class TrainConfig:
     ``full`` (recompute the whole layer in the backward), ``block`` (keep
     the plain matmuls' outputs, recompute the rest) or ``group:<k>``,
     which the reference's ``wrap_block`` treats exactly as ``block``, and
-    so does the port.  ``optim_compress`` takes only ``"none"``: the
-    compressed optimizer state comes with a later slice, and a config
-    asking for it raises here rather than training without it."""
+    so does the port.  ``optim_compress`` is AdamW's state: ``none``
+    (float32), ``bf16`` (a stochastically rounded bf16 first moment) or
+    ``sm3`` (that and factored second moments; :mod:`repro_torch.optim.
+    adamw`)."""
 
     learning_rate: float = 3e-4
     min_lr_ratio: float = 0.1
@@ -518,7 +518,7 @@ class TrainConfig:
     # memory policy ------------------------------------------------------
     microbatches: int = 1            # gradient accumulation factor
     remat: str = "block"             # none | full | block | group:<k>
-    optim_compress: str = "none"     # the reference also takes bf16 | sm3
+    optim_compress: str = "none"     # none | bf16 | sm3
 
     # fault tolerance ------------------------------------------------------
     checkpoint_every: int = 200
@@ -537,10 +537,10 @@ class TrainConfig:
 
     def __post_init__(self):
         check_remat(self.remat)
-        if self.optim_compress != "none":
-            raise NotImplementedError(
-                f"TrainConfig.optim_compress={self.optim_compress!r} is not yet ported to "
-                "repro_torch (only 'none'; ROADMAP A6)"
+        if self.optim_compress not in ("none", "bf16", "sm3"):
+            raise ValueError(
+                "TrainConfig.optim_compress must be 'none', 'bf16' or "
+                f"'sm3'; got {self.optim_compress!r}"
             )
         if self.microbatches < 1:
             raise ValueError(f"TrainConfig.microbatches must be >= 1; got {self.microbatches}")

@@ -26,6 +26,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.layout import flatten, named_paths
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import Block, Transformer
 from repro_torch.optim.adamw import adamw_init
@@ -74,28 +75,32 @@ class Stacked:
             t.copy_(stacked[l])
 
 
-def named_layout(named: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """``{port parameter name: tensor}`` in the reference's parameter
-    layout, its layer leaves :class:`Stacked` (no copies)."""
-    n_layers = 1 + max(int(k.split(".")[1]) for k in named if k.startswith("layers."))
+def _map_names(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_names(v, fn) for k, v in tree.items()}
+    return fn(tree)
 
-    def stacked(suffix):
-        return Stacked(named[f"layers.{l}.{suffix}"] for l in range(n_layers))
 
-    parts = {"attn": {}, "mlp": {}}
-    for k in named:
-        if k.startswith("layers.0."):
-            _, _, part, *leaf = k.split(".")
-            if leaf:
-                parts[part][leaf[0]] = stacked(f"{part}.{leaf[0]}")
-    tree = {
-        "embed": {"tok": named["embed"]},
-        "final_norm": named["final_norm"],
-        "layers": {"ln1": stacked("ln1"), "ln2": stacked("ln2"), **parts},
-    }
-    if "lm_head" in named:
-        tree["head"] = {"lm_head": named["lm_head"]}
-    return tree
+def named_layout(named: Dict[str, Any]) -> Dict[str, Any]:
+    """``{port parameter name: tensor}`` (the parameters, or an AdamW slot)
+    in the reference's parameter layout, its layer leaves :class:`Stacked`
+    (no copies).  An SM3 entry ``{"r", "c"}`` becomes the reference's
+    ``{"r", "c"}`` leaf: each factor stacked over the layers, but a ``c``
+    that every layer shares (a per-layer vector's) the one tensor."""
+
+    def leaf(ns):
+        if isinstance(ns, str):
+            return named[ns]
+        entries = [named[n] for n in ns]
+        if not isinstance(entries[0], dict):
+            return Stacked(entries)
+        out = {}
+        for k in ("c", "r"):
+            ts = [e[k] for e in entries]
+            out[k] = ts[0] if all(t is ts[0] for t in ts) else Stacked(ts)
+        return out
+
+    return _map_names(named_paths(named), leaf)
 
 
 def train_state_layout(state: Dict[str, Any]) -> Dict[str, Any]:
@@ -173,21 +178,28 @@ def _tree_to(tree):
 def train_state_from_jax(state: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     """The reference's train state (``jax.tree.map(np.asarray, state)``) as
     the port's (:func:`repro_torch.training.steps.init_train_state`): the
-    same parameters, trainable; AdamW's slots (a float32 parameter is its
-    own master, which the reference keeps equal to it); the calibration
-    tree; the step."""
+    same parameters, trainable; AdamW's slots, compressed as the
+    reference's are (bf16 m, SM3 ``{"r", "c"}`` leaves), and a float32
+    parameter its own master, which the reference keeps equal to it; the
+    calibration tree; the step."""
+
     params = params_from_jax(state["params"], device)
     for p in params.parameters():
         p.requires_grad_(True)
     named = dict(params.named_parameters())
-    opt = adamw_init(named)
-    for slot in ("m", "v", "master"):
-        for n, a in named_from_jax(state["opt"][slot]).items():
-            dst = opt[slot][n]
-            if slot == "master" and dst.data_ptr() == named[n].data_ptr():
-                continue
-            dst.copy_(_tensor(a, device))
-    opt["count"] = torch.tensor(int(np.asarray(state["opt"]["count"])), dtype=torch.int32,
+    jopt = state["opt"]
+    compress = ("none" if np.asarray(jopt["m"]["final_norm"]).dtype == np.float32
+                else "sm3" if isinstance(jopt["v"]["embed"]["tok"], dict) else "bf16")
+    opt = adamw_init(named, compress)
+    with torch.no_grad():
+        for slot in ("m", "v", "master"):
+            port, ref = flatten(named_layout(opt[slot])), flatten(jopt[slot])
+            if [p for p, _ in port] != [p for p, _ in ref]:
+                raise ValueError(f"the reference's opt[{slot!r}] is not laid out as the port's")
+            for (_, leaf), (_, a) in zip(port, ref):
+                t = _tensor(a, "cpu")
+                leaf.load_(t) if isinstance(leaf, Stacked) else leaf.copy_(t)
+    opt["count"] = torch.tensor(int(np.asarray(jopt["count"])), dtype=torch.int32,
                                 device=params.device)
     return {"params": params, "opt": opt, "calib": _tree_from(state["calib"], params.device),
             "step": int(np.asarray(state["step"]))}

@@ -5,8 +5,8 @@ runtime-switch dispatch).
 
 * no ctx / inactive config -> plain ``x @ w`` (exact baseline)
 * ``TrainMode.MODEL``      -> bit-accurate emulated forward, proxy backward;
-  through the backend's fused kernel (forward only) when ``ctx.fused`` and
-  the spec has one
+  through the backend's fused kernel when ``ctx.fused`` and the spec has
+  one
 * ``TrainMode.INJECT``     -> fast forward plus calibrated error
 * ``TrainMode.PROXY_ONLY`` -> the proxy activation only (ablation)
 * ``ctx.collect``          -> calibration pass (emulated forward, fitted
@@ -21,8 +21,10 @@ outputs (online recalibration's correction).
 ``ctx.site_idx`` (:mod:`repro_torch.core.switch`) picks each site's
 backend from the switch table at run time instead (one step or serving
 lane for every map), and ``ctx.blend`` interpolates every approximate
-projection toward exact (the search's sensitivity probe).  The reference's
-backward-gate hook waits for the approximate backward (ROADMAP A6).
+projection toward exact (the search's sensitivity probe).  ``ctx.bwd_gate``
+routes each site's two gradient matmuls through the int8 grid (the
+approximate backward, :mod:`repro_torch.core.injection`); forward values
+never change with it.
 """
 from __future__ import annotations
 
@@ -81,6 +83,13 @@ class ApproxCtx:
     :func:`repro_torch.core.injection.calibrate_matmul`).  The memo also
     keeps the chip's epilogue terms per site, which every layer of a
     decode step shares.
+
+    ``bwd_gate`` is the approximate backward's mask: an int32
+    ``[n_sites]`` host array over ``switch.SITE_ORDER``, 1 where a site's
+    gradient matmuls (dL/dx, dL/dW) run on the int8 grid, 0 where they
+    stay exact (:meth:`site_gate`).  A host array, as ``site_idx`` is: the
+    branch is taken on the host, and flipping the mask builds nothing.
+    ``None`` leaves every backward as it was.
     """
 
     cfg: ApproxConfig
@@ -95,12 +104,23 @@ class ApproxCtx:
     calib_exact_ref: bool = False
     blend: Optional[torch.Tensor] = None
     site_idx: Optional[np.ndarray] = None
+    bwd_gate: Optional[np.ndarray] = None
     _memo: Dict = dataclasses.field(default_factory=dict, init=False, repr=False, compare=False)
 
     def site_path(self, site: str) -> Tuple[int, ...]:
         """This site's key path: the ctx's path with ``crc32(site) &
         0x7FFFFFFF`` folded in, the reference's ``ApproxCtx.site_rng``."""
         return tuple(self.rng) + (zlib.crc32(site.encode()) & 0x7FFFFFFF,)
+
+    def site_gate(self, site: str) -> Optional[int]:
+        """This site's backward gate (an int), or None when gating is off:
+        without a mask, in a calibration pass (no gradients wanted) and
+        under the ``blend`` probe (its gradient must flow through the proxy
+        VJP the profile is defined on)."""
+        if self.bwd_gate is None or self.collect or self.blend is not None:
+            return None
+        pos = switch_lib.site_pos(site)
+        return None if pos is None else int(self.bwd_gate[pos])
 
     def site_rng(self, site: str) -> Callable:
         """This site's draw source, ``(n_ports, n_bits, device) -> (ux, uw)``,
@@ -160,11 +180,17 @@ def _backend_name(backend) -> str:
     return backend.value if isinstance(backend, Backend) else str(backend)
 
 
-def _approx_branch(x, w, site: str, backend, ctx: ApproxCtx):
+def _exact(x, w, gate):
+    """The exact projection, its backward under ``gate``."""
+    return x @ w if not gate else injection.gated_exact_matmul(x, w, gate)
+
+
+def _approx_branch(x, w, site: str, backend, ctx: ApproxCtx, gate=None):
     """The non-exact projection body for one backend under the ctx's mode,
     shared by the static path and every switch branch; with ``ctx.blend``
-    interpolated toward exact."""
-    y = _mode_branch(x, w, site, backend, ctx)
+    interpolated toward exact.  ``gate`` routes the backward through the
+    int8 grid; the forward is the same."""
+    y = _mode_branch(x, w, site, backend, ctx, gate)
     if ctx.blend is not None:
         # the sensitivity probe (ApproxCtx.blend): d loss / d blend at 0 is
         # the first-order loss change of this site's approximation
@@ -173,23 +199,22 @@ def _approx_branch(x, w, site: str, backend, ctx: ApproxCtx):
     return y
 
 
-def _mode_branch(x, w, site: str, backend, ctx: ApproxCtx):
+def _mode_branch(x, w, site: str, backend, ctx: ApproxCtx, gate=None):
     cfg = ctx.cfg
     if cfg.mode == TrainMode.MODEL:
         spec = registry.get(backend)
         rng = ctx.site_rng(site)
         name = _backend_name(backend)
         stats = (ctx.calib or {}).get(site) if ctx.correct else None
-        if (ctx.fused and ctx.blend is None and spec.fused_emulate is not None
-                and not injection.needs_grad(x, w)):
+        if ctx.fused and ctx.blend is None and spec.fused_emulate is not None:
             # the chip and the correction in the kernel's epilogue: the same
             # bits as the composed path below
             colgain, coladd = ctx.chip_terms(site, name, w.shape[-1], x.dtype, x.device)
             epi = {"colgain": colgain, "coladd": coladd,
                    "mean_coeffs": None if stats is None else stats["mean"],
                    "mean_scale": None if stats is None else stats["scale"]}
-            return injection.fused_model_mode_matmul(x, w, cfg, rng, epi, backend)
-        y = injection.model_mode_matmul(x, w, cfg, rng, backend)
+            return injection.fused_model_mode_matmul(x, w, cfg, rng, epi, backend, gate)
+        y = injection.model_mode_matmul(x, w, cfg, rng, backend, gate)
         # what this chip computes (variation.apply_chip, its terms memoised)
         colgain, coladd = ctx.chip_terms(site, name, y.shape[-1], y.dtype, y.device)
         if coladd is not None:
@@ -200,10 +225,11 @@ def _mode_branch(x, w, site: str, backend, ctx: ApproxCtx):
         return y
     if cfg.mode == TrainMode.INJECT:
         stats = (ctx.calib or {}).get(site)
-        return injection.inject_mode_matmul(x, w, cfg, stats, ctx.site_path(site), backend)
+        return injection.inject_mode_matmul(x, w, cfg, stats, ctx.site_path(site), backend,
+                                            gate)
     if cfg.mode == TrainMode.PROXY_ONLY:
-        return injection.proxy_only_matmul(x, w, cfg, backend)
-    return x @ w  # NO_MODEL with an active backend
+        return injection.proxy_only_matmul(x, w, cfg, backend, gate)
+    return _exact(x, w, gate)  # NO_MODEL with an active backend
 
 
 def _switch_dense(x, w, *, site: str, ctx: ApproxCtx):
@@ -226,11 +252,12 @@ def _switch_dense(x, w, *, site: str, ctx: ApproxCtx):
              else switch_lib.table())
     pos = switch_lib.site_pos(site)
     idx = np.asarray(ctx.site_idx)[..., pos]
+    gate = ctx.site_gate(site)
 
     def branch(i: int):
         if i == 0:
-            return (x @ w).to(x.dtype)
-        return _approx_branch(x, w, site, names[i], ctx).to(x.dtype)
+            return _exact(x, w, gate).to(x.dtype)
+        return _approx_branch(x, w, site, names[i], ctx, gate).to(x.dtype)
 
     top = len(names) - 1
     if idx.ndim == 0:
@@ -259,11 +286,13 @@ def dense(x, w, b=None, *, site: str = "", ctx: ApproxCtx = None):
         # when the index was resolved, switch.site_indices)
         y = _switch_dense(x, w, site=site, ctx=ctx)
     elif ctx is None or not ctx.cfg.active:
-        y = x @ w
+        y = x @ w if ctx is None else _exact(x, w, ctx.site_gate(site))
     else:
         backend = ctx.cfg.backend_for(site)
         if backend == Backend.EXACT or skipped_site(site, ctx.cfg):
-            y = x @ w
+            # an exact forward still takes the int8 backward when gated open
+            # (warm-up phases run every forward exact)
+            y = _exact(x, w, ctx.site_gate(site))
             if ctx.collect:
                 # a calibration pass carries the stats of every site the
                 # tree holds, exact and skipped ones too, so the tree keeps
@@ -277,7 +306,7 @@ def dense(x, w, b=None, *, site: str = "", ctx: ApproxCtx = None):
                 exact_ref=ctx.calib_exact_ref,
             )
         else:
-            y = _approx_branch(x, w, site, backend, ctx)
+            y = _approx_branch(x, w, site, backend, ctx, ctx.site_gate(site))
     y = y.to(compute_dtype)
     if b is not None:
         y = y + b.to(compute_dtype)

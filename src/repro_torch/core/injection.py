@@ -1,8 +1,8 @@
 """The training-time forward paths of an approximate projection (port of
 ``repro.core.injection``: ``model_mode_matmul``, ``fused_model_mode_matmul``,
-``fast_forward``, ``inject_mode_matmul``, ``proxy_only_matmul`` and
-``calibrate_matmul`` with a chip and the exact-reference fit; the gated
-approximate-backward variants come later).
+``fast_forward``, ``inject_mode_matmul``, ``proxy_only_matmul``,
+``calibrate_matmul`` with a chip and the exact-reference fit,
+``_gated_vjp`` and ``gated_exact_matmul``).
 
 * MODEL mode  — bit-accurate emulated forward, proxy-activation backward
   (paper Sec. 3.1): a ``torch.autograd.Function`` whose backward is the
@@ -15,47 +15,84 @@ approximate-backward variants come later).
 approx_linear.ApproxCtx.site_rng`, read by SC only); ``path`` is the
 site's key path (:meth:`~repro_torch.core.approx_linear.ApproxCtx.
 site_path`), from which INJECT mode draws its noise.
+
+**Approximate backward.**  Every path takes a ``gate``: ``None`` (the
+default) or an int, the site's slot of ``ApproxCtx.bwd_gate``.  A closed
+gate (None or 0) keeps the path's plain graph, the exact VJP of its
+surrogate.  An open one (> 0) makes the backward :func:`_gated_vjp`: the
+same VJP at :func:`repro_torch.core.proxy.int8_dequant`-ed operands and
+cotangent (the gradient matmuls on the int8 datapath).  The forward is
+the same either way.  The reference picks the branch with a ``lax.cond`` on a
+device scalar; here the gate is a host int and the branch a Python
+``if``, so a gated projection makes the host wait for nothing.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from repro_torch.configs.base import ApproxConfig, Backend
 from repro_torch.core import calibration, registry
+from repro_torch.core.proxy import int8_dequant
 from repro_torch.hw.variation import apply_chip
+from repro_torch.kernels.epilogue import apply_epilogue
+
+
+def _gated_vjp(surrogate: Callable, x, w, g, gate, need=(True, True)):
+    """``(dL/dx, dL/dw)`` of one projection: the VJP of ``surrogate`` (the
+    plain matmul, the proxy forward, or the proxy and the epilogue) at
+    ``(x, w)`` for the cotangent ``g``; with ``gate > 0`` at the int8 grid
+    of each (``x`` and ``g`` per row, ``w`` per tensor).  ``need`` says
+    which of the two to compute; the other is None."""
+    if gate is not None and int(gate) > 0:
+        x, w, g = int8_dequant(x), int8_dequant(w, axis=None), int8_dequant(g)
+    need_x, need_w = need
+    with torch.enable_grad():
+        xd = x.detach().requires_grad_(need_x)
+        wd = w.detach().requires_grad_(need_w)
+        y = surrogate(xd, wd)
+        inputs = [t for t, n in ((xd, need_x), (wd, need_w)) if n]
+        grads = iter(torch.autograd.grad(y, inputs, g))
+    return (next(grads) if need_x else None), (next(grads) if need_w else None)
+
+
+def _surrogate(spec, params, proxy_in_backward: bool, epi=None) -> Callable:
+    """The function whose VJP is MODEL mode's backward: the backend's proxy
+    (or ``x @ w`` when ``proxy_in_backward`` is off, the paper's Tab. 2
+    ablation), followed by the epilogue ``epi`` when given (the fused
+    projection's: gradients see the chip gain and the correction slope)."""
+
+    def fn(a, b):
+        y = spec.proxy(a, b, params) if proxy_in_backward else a @ b
+        return y if epi is None else apply_epilogue(y, **epi)
+
+    return fn
 
 
 class _ModelModeMatmul(torch.autograd.Function):
-    """Forward: ``spec.emulate`` (kernels K1, K4 or K6 on the card) on
-    contiguous operands, without a graph.  Backward: the VJP of
-    ``spec.proxy_forward`` (or of ``x @ w`` when ``proxy_in_backward`` is
-    off, the paper's Tab. 2 ablation) at the saved ``(x, w)``.  The spec,
-    params and draw source get no gradient."""
+    """Forward: ``forward_fn(x, w)`` without a graph: the emulator (K1, K4
+    or K6 on the card), the fused emulator with an epilogue (K2, K5 or K7),
+    or for a gated exact, fast or proxy projection ``surrogate`` itself.
+    Backward: :func:`_gated_vjp` of ``surrogate`` at the saved ``(x, w)``
+    under ``gate``.  The callables and the gate get no gradient (a fused
+    epilogue's operands get the reference's zeros)."""
 
     @staticmethod
-    def forward(ctx, x, w, spec, params, rng, proxy_in_backward):
+    def forward(ctx, x, w, forward_fn, surrogate, gate):
         ctx.save_for_backward(x, w)
-        ctx.spec, ctx.params, ctx.proxy_in_backward = spec, params, proxy_in_backward
-        return spec.emulate(x.contiguous(), w.contiguous(), params, rng)
+        ctx.surrogate, ctx.gate = surrogate, gate
+        return forward_fn(x, w)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        need_x, need_w = ctx.needs_input_grad[:2]
-        with torch.enable_grad():
-            xd = x.detach().requires_grad_(need_x)
-            wd = w.detach().requires_grad_(need_w)
-            if ctx.proxy_in_backward:
-                y = ctx.spec.proxy(xd, wd, ctx.params)
-            else:
-                y = xd @ wd
-            inputs = [t for t, need in ((xd, need_x), (wd, need_w)) if need]
-            grads = iter(torch.autograd.grad(y, inputs, g))
-        gx = next(grads) if need_x else None
-        gw = next(grads) if need_w else None
-        return gx, gw, None, None, None, None
+        gx, gw = _gated_vjp(ctx.surrogate, x, w, g, ctx.gate, ctx.needs_input_grad[:2])
+        return gx, gw, None, None, None
+
+
+def _matmul(a, b):
+    return a @ b
 
 
 def needs_grad(x, w) -> bool:
@@ -63,9 +100,11 @@ def needs_grad(x, w) -> bool:
     return torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
 
 
-def model_mode_matmul(x, w, cfg: ApproxConfig, rng, backend: Optional[Backend] = None):
+def model_mode_matmul(x, w, cfg: ApproxConfig, rng, backend: Optional[Backend] = None,
+                      gate=None):
     """Accurate-forward / proxy-backward projection (MODEL mode).  With no
-    operand needing a gradient it is a plain call into the emulator."""
+    operand needing a gradient it is a plain call into the emulator.
+    ``gate`` routes the backward through the int8 grid (:func:`_gated_vjp`)."""
     backend = backend if backend is not None else cfg.backend
     spec = registry.get(backend)
     params = cfg.params_for(backend)
@@ -73,22 +112,30 @@ def model_mode_matmul(x, w, cfg: ApproxConfig, rng, backend: Optional[Backend] =
         return spec.emulate(x, w, params, rng)
     if cfg.proxy_in_backward and spec.proxy_forward is None:
         raise NotImplementedError(f"backend {spec.name!r} has no proxy_forward: it cannot train")
-    return _ModelModeMatmul.apply(x, w, spec, params, rng, cfg.proxy_in_backward)
+    return _ModelModeMatmul.apply(
+        x, w, lambda a, b: spec.emulate(a.contiguous(), b.contiguous(), params, rng),
+        _surrogate(spec, params, cfg.proxy_in_backward), gate)
 
 
 def fused_model_mode_matmul(
-    x, w, cfg: ApproxConfig, rng, epi: dict, backend: Optional[Backend] = None
+    x, w, cfg: ApproxConfig, rng, epi: dict, backend: Optional[Backend] = None, gate=None
 ):
     """Emulated matmul with the chip/calibration epilogue ``epi`` (see
-    :func:`repro_torch.kernels.epilogue.apply_epilogue`) in one kernel
-    call, forward only: the serving decode path.  ``None`` entries of
-    ``epi`` are dropped."""
-    if needs_grad(x, w):
-        raise NotImplementedError("the fused MODEL-mode projection is forward only")
+    :func:`repro_torch.kernels.epilogue.apply_epilogue`) in one kernel call
+    (the serving decode path).  Its backward is the VJP of the proxy
+    followed by the same epilogue, under ``gate`` (:func:`_gated_vjp`).
+    ``None`` entries of ``epi`` are dropped."""
     backend = backend if backend is not None else cfg.backend
     epi = {k: v for k, v in epi.items() if v is not None}
     spec = registry.get(backend)
-    return spec.fused_emulate(x, w, cfg.params_for(backend), rng, epi)
+    params = cfg.params_for(backend)
+    if not needs_grad(x, w):
+        return spec.fused_emulate(x, w, params, rng, epi)
+    if cfg.proxy_in_backward and spec.proxy_forward is None:
+        raise NotImplementedError(f"backend {spec.name!r} has no proxy_forward: it cannot train")
+    return _ModelModeMatmul.apply(
+        x, w, lambda a, b: spec.fused_emulate(a, b, params, rng, epi),
+        _surrogate(spec, params, cfg.proxy_in_backward, epi), gate)
 
 
 def fast_forward(x, w, cfg: ApproxConfig, backend: Optional[Backend] = None):
@@ -98,24 +145,45 @@ def fast_forward(x, w, cfg: ApproxConfig, backend: Optional[Backend] = None):
     return registry.get(backend).fast(x, w, cfg.params_for(backend))
 
 
+def _gated(fn: Callable, x, w, gate):
+    """``fn(x, w)``, whose backward runs on the int8 grid when ``gate`` is
+    open; a closed gate (None or 0) keeps autograd's own graph, which is the
+    exact VJP bit for bit."""
+    if not gate or not needs_grad(x, w):
+        return fn(x, w)
+    return _ModelModeMatmul.apply(x, w, fn, fn, gate)
+
+
+def gated_exact_matmul(x, w, gate):
+    """Exact forward ``x @ w`` whose backward obeys the int8 gate: a site
+    whose forward stays exact (warm-up phases, exact-mapped or skipped
+    sites) can still run its two gradient matmuls on the int8 grid.  At
+    gate 0 the VJP is the plain matmul's, bitwise."""
+    return _gated(_matmul, x, w, gate)
+
+
 def inject_mode_matmul(
-    x, w, cfg: ApproxConfig, site, path: Sequence[int], backend: Optional[Backend] = None
+    x, w, cfg: ApproxConfig, site, path: Sequence[int], backend: Optional[Backend] = None,
+    gate=None,
 ):
     """Fast forward plus injected calibrated error (INJECT mode).  ``site``
     is the projection's calibration stats (``None``: no injection); the
     error is added detached, so it perturbs values and steers no
-    gradient."""
-    y = fast_forward(x, w, cfg, backend)
+    gradient.  ``gate`` routes the fast forward's backward through the
+    int8 grid."""
+    y = _gated(lambda a, b: fast_forward(a, b, cfg, backend), x, w, gate)
     if site is None:
         return y
     err = calibration.sample_error(site, y.detach(), path, cfg.inject_std_scale)
     return y + err
 
 
-def proxy_only_matmul(x, w, cfg: ApproxConfig, backend: Optional[Backend] = None):
-    """Proxy activation forward and backward, no injection (ablation)."""
+def proxy_only_matmul(x, w, cfg: ApproxConfig, backend: Optional[Backend] = None, gate=None):
+    """Proxy activation forward and backward, no injection (ablation);
+    ``gate`` routes the backward through the int8 grid."""
     backend = backend if backend is not None else cfg.backend
-    return registry.get(backend).proxy(x, w, cfg.params_for(backend))
+    spec, params = registry.get(backend), cfg.params_for(backend)
+    return _gated(lambda a, b: spec.proxy(a, b, params), x, w, gate)
 
 
 def calibrate_matmul(

@@ -1,9 +1,9 @@
 """Operand splitting, dynamic scales and the approximation-proxy
 activations (port of ``repro.core.proxy``: ``split_signed``,
 ``tensor_scale``, ``row_scale``, ``sc_or_act``, ``analog_clamp_act``,
-``unipolar_matmuls``, ``sc_proxy``, ``analog_proxy``, ``identity_proxy``
-and ``proxy_forward``; ``int8_dequant`` comes with the approximate
-backward).
+``unipolar_matmuls``, ``sc_proxy``, ``analog_proxy``, ``identity_proxy``,
+``proxy_forward`` and ``int8_dequant``, the operand grid of the
+approximate backward).
 
 The proxies are smooth surrogates of the approximate accumulators, applied
 to the positive and negative halves of the accumulation (paper Sec. 3.1):
@@ -18,6 +18,10 @@ the reference's gradients as well as its values: the scales are detached
 ``jnp.abs``'s VJP does, the clamp is ``maximum`` then ``minimum``, whose
 gradients split evenly at a tie as ``jnp.clip``'s do, and every Python
 constant meets a tensor in the tensor's dtype (JAX's weak typing).
+
+A scale's floor is a 0-dim tensor made once per (value, dtype, device)
+(:func:`repro_torch.kernels.ref.const`): made per call from a Python float,
+it would be a blocking copy from the host in every projection.
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ def split_signed(x):
 def tensor_scale(x, eps: float = OPERAND_EPS):
     """Per-tensor dynamic scale: max |x|, never below eps (no gradient)."""
     m = torch.amax(torch.abs(x.detach()))
-    return torch.maximum(m, torch.tensor(eps, dtype=x.dtype, device=x.device))
+    return torch.maximum(m, const(eps, m))
 
 
 def row_scale(x, eps: float = OPERAND_EPS):
@@ -50,7 +54,25 @@ def row_scale(x, eps: float = OPERAND_EPS):
     emulators keep per-tensor activation scales (a device property), as in
     the reference, so their outputs depend on the whole batch."""
     m = torch.amax(torch.abs(x.detach()), dim=-1, keepdim=True)
-    return torch.maximum(m, torch.tensor(eps, dtype=x.dtype, device=x.device))
+    return torch.maximum(m, const(eps, m))
+
+
+def int8_dequant(t, axis: Optional[int] = -1, eps: float = OPERAND_EPS):
+    """``t`` rounded onto a symmetric signed 8-bit grid and dequantised:
+    the operand an int8 datapath sees.  ``axis`` an int takes a max-abs
+    scale per row over that axis (activations and cotangents); ``None``
+    one per-tensor scale (weights).  The scale gets no gradient.
+    ``round(t / s * 127) * (s / 127)`` in ``t``'s dtype, each constant
+    rounded to it first; ``torch.round`` rounds half to even, as
+    ``jnp.round`` does.  The approximate backward evaluates the gradient
+    matmuls at these operands (:mod:`repro_torch.core.injection`)."""
+    if axis is None:
+        s = tensor_scale(t, eps)
+    else:
+        m = torch.amax(torch.abs(t.detach()), dim=axis, keepdim=True)
+        s = torch.maximum(m, const(eps, m))
+    c = const(127.0, s)
+    return torch.round(t / s * c) * (s / c)
 
 
 def _abs(x):

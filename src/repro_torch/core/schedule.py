@@ -122,7 +122,8 @@ class PhasePlan:
     @property
     def any_gated_backward(self) -> bool:
         """True when any phase runs (or may run) the approximate
-        backward (which the port's Trainer refuses: ROADMAP A6)."""
+        backward: the Trainer then builds every train step bwd-aware, so
+        exact and gated phases share one step."""
         return any(p.backward != "exact" for p in self.phases)
 
     def describe(self) -> str:

@@ -163,9 +163,9 @@ def backward_gate(
 
     ``approx_sites=None`` opens every site (then ``exact_sites`` closes
     the named ones — the sensitivity-ranked protection list); otherwise
-    only the named ``approx_sites`` open.  Its consumer (the reference's
-    ``ApproxCtx.bwd_gate``) comes with the approximate backward (ROADMAP
-    A6).
+    only the named ``approx_sites`` open.  ``ApproxCtx.bwd_gate`` reads it
+    (:func:`repro_torch.search.sensitivity.backward_gate` derives one from
+    the sites' sensitivities).
     """
     if approx_sites is None:
         out = np.ones(len(SITE_ORDER), np.int32)

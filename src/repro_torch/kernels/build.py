@@ -89,6 +89,8 @@ SIGNATURES = {
         "sc_draws": (_P, _I, _P, _P, _I, _I, _P),
         # path, n_path, out, n, stream
         "normal_draws": (_P, _I, _P, ctypes.c_longlong, _P),
+        # path, n_path, x, out, n, offset, stream
+        "sr_bf16": (_P, _I, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P),
     },
     "analog_matmul": {
         # M, N, K, array_size, adc_bits
@@ -136,6 +138,8 @@ LAUNCHES: Dict[str, int] = {
     "sc_draws": 0,
     # the Gaussian noise of an INJECT-mode projection (threefry, erfinv)
     "normal_draws": 0,
+    # AdamW's first moment stochastically rounded to bf16 (threefry)
+    "sr_bf16": 0,
     # the threshold tables of a set of SC draws, in front of K4 and K5
     "sc_tables": 0,
     "analog_matmul": 0,

@@ -1,6 +1,7 @@
 // The generator sequences of one SC projection on Hopper, bitwise those of
-// jax.random (threefry2x32, partitionable layout), and the Gaussian noise
-// of one INJECT-mode projection.
+// jax.random (threefry2x32, partitionable layout), the Gaussian noise of
+// one INJECT-mode projection, and the stochastic rounding of AdamW's
+// compressed first moment.
 //
 // Replaces the stream generation in front of the Pallas TPU kernels,
 // repro/kernels/ops.py::sc_matmul (jax.random.uniform, not a Pallas
@@ -25,6 +26,18 @@
 // contracts them, each taken in float64 (exact product) and rounded once:
 // bitwise the plain version on the card, within 3 float32 ulps of
 // jax.random.normal on the CPU (whose log1p is XLA's own).
+//
+// Replaces, for AdamW's compressed state, repro/optim/adamw.py::
+// _stochastic_round_bf16's
+//   noise = jax.random.randint(key, shape, 0, 1 << 16, uint32)
+//   bf16((bits(x) + noise) & 0xFFFF0000)
+// -> round_bf16(), one launch per tensor: randint over a span of 2^16 is
+// the low 16 bits of the draw of split(key)[1] (the multiplier of the
+// other stream is 2^32 mod 2^16 = 0), so element i adds (b0 ^ b1) & 0xFFFF
+// of that key's block on counter offset + i to the float's bit pattern
+// (a uint32 add that wraps) and keeps the top half, which is the bf16 of
+// the masked float (exact; a NaN keeps its payload's top bits).  offset
+// places a tensor inside the stacked [L, ...] leaf whose draws it takes.
 //
 // The key path comes as a few int32 words in device memory, not as
 // launch arguments: every thread derives the key itself (one block per
@@ -143,6 +156,30 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// x [n] float32 -> out [n] bf16 bit patterns, stochastically rounded with
+// the draws of the key path at counters offset .. offset + n - 1.  A block
+// takes THREADS * ROUND_PER_THREAD consecutive elements, a thread every
+// THREADS-th of them: the key's blocks (three for AdamW's path) are paid
+// once per 32 elements, against the 32 blocks of the draws themselves.
+constexpr int ROUND_PER_THREAD = 32;
+
+__global__ void __launch_bounds__(THREADS)
+    round_bf16(const int32_t* __restrict__ path, int n_path, const float* __restrict__ x,
+               uint16_t* __restrict__ out, long long n, long long offset) {
+  const long long first = blockIdx.x * (long long)(THREADS * ROUND_PER_THREAD) + threadIdx.x;
+  if (first >= n) return;
+  Key k{0u, (uint32_t)path[0]};
+  for (int j = 1; j < n_path; ++j) k = threefry(k, 0u, (uint32_t)path[j]);
+  const long long end = min(n, first + (long long)ROUND_PER_THREAD * THREADS);
+  uint64_t c = (uint64_t)(offset + first);
+#pragma unroll 4
+  for (long long i = first; i < end; i += THREADS, c += THREADS) {
+    const Key r = threefry(k, (uint32_t)(c >> 32), (uint32_t)c);
+    const uint32_t u = __float_as_uint(x[i]) + ((r.a ^ r.b) & 0xFFFFu);
+    out[i] = (uint16_t)(u >> 16);
+  }
+}
+
 }  // namespace
 }  // namespace repro_prng
 
@@ -168,6 +205,19 @@ extern "C" int normal_draws(const int32_t* path, int n_path, float* out, long lo
   if (n == 0) return 0;
   constexpr long long per_block = THREADS * PER_THREAD;
   normals<<<(unsigned)((n + per_block - 1) / per_block), THREADS, 0, st>>>(path, n_path, out, n);
+  return (int)cudaGetLastError();
+}
+
+// out [n] bf16 (as uint16 bit patterns): x [n] float32 stochastically
+// rounded with the draws of the key path path[0 .. n_path) at counters
+// offset .. offset + n - 1.
+extern "C" int sr_bf16(const int32_t* path, int n_path, const float* x, uint16_t* out,
+                       long long n, long long offset, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n == 0) return 0;
+  constexpr long long per_block = THREADS * ROUND_PER_THREAD;
+  round_bf16<<<(unsigned)((n + per_block - 1) / per_block), THREADS, 0, st>>>(path, n_path, x,
+                                                                              out, n, offset);
   return (int)cudaGetLastError();
 }
 

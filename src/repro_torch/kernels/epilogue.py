@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.ref import const
+
 ROW_EPS = 1e-6
 
 
@@ -46,7 +48,7 @@ def row_abs_scale(y, eps: float = ROW_EPS):
     and detached (the reference's ``stop_gradient``): the chip's additive
     terms ride on it and steer no gradient."""
     m = torch.amax(torch.abs(y.detach()), dim=-1, keepdim=True)
-    return torch.maximum(m, torch.tensor(eps, dtype=y.dtype, device=y.device))
+    return torch.maximum(m, const(eps, m))  # made once: no copy from the host a call
 
 
 def apply_epilogue(

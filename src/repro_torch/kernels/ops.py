@@ -66,6 +66,20 @@ def _path_on_card(key, device):
     return words.to(device, non_blocking=True)
 
 
+def stochastic_round_bf16(x, path, offset: int = 0):
+    """``x`` (float32) rounded to bfloat16 stochastically, with the draws of
+    a key path at element counters ``offset ..`` (``jax.random.randint(...,
+    0, 2**16)`` of the path's key: :func:`repro_torch.kernels.prng.
+    stochastic_round_bf16`).  ``path`` is the path's int32 words
+    (:func:`repro_torch.kernels.prng.path_words`) as a tensor on ``x``'s
+    device: on the CPU the plain version, on the card one launch of
+    ``csrc/prng.cu`` that reads the words there."""
+    if _on_cuda(x, path):
+        return _prng.stochastic_round_bf16_cuda(path, x.contiguous(), offset)
+    words = [int(w) & _prng.MASK for w in path.tolist()]
+    return _prng.stochastic_round_bf16(x, _prng.key_of_path(words), offset)
+
+
 def normal(key: Tuple[int, ...], shape, device):
     """Standard normals (float32) of a key path: ``jax.random.normal`` of
     the path's key (:func:`repro_torch.kernels.prng.normal`), on the CPU by

@@ -17,6 +17,11 @@ off:
   keeps its top 23 bits as the mantissa of a float in [1, 2) and
   subtracts 1.
 
+* ``randint(key, shape, 0, 2**16)`` is the low 16 bits of the bits of
+  ``split(key)[1]`` (the other stream's multiplier, ``2**32 mod 2**16``,
+  is 0): :func:`stochastic_round_bf16` adds them to a float's pattern, the
+  reference's ``_stochastic_round_bf16`` of AdamW's first moment.
+
 * ``normal(key, shape)`` maps the same bits to ``u`` in ``(-1, 1)``
   (``max(lo, f * 2 + lo)`` with ``f`` the [0, 1) float above and ``lo``
   the float32 after -1) and returns ``sqrt(2) * erfinv(u)``, ``erfinv``
@@ -117,9 +122,10 @@ def randint(key: Key, shape, minval: int, maxval: int, device="cpu") -> torch.Te
     return out.to(torch.int32).reshape(tuple(shape))
 
 
-def _bits(key: Key, n: int, device):
-    """The 32 random bits of elements 0..n-1 (``b0 ^ b1``), in int64."""
-    i = torch.arange(n, dtype=torch.int64, device=device)
+def _bits(key: Key, n: int, device, offset: int = 0):
+    """The 32 random bits of elements offset..offset+n-1 (``b0 ^ b1``), in
+    int64."""
+    i = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     b0, b1 = threefry2x32(key, i >> 32, i & MASK)
     return b0 ^ b1
 
@@ -216,6 +222,43 @@ def normal(key: Key, shape, device="cpu") -> torch.Tensor:
     lo = torch.tensor(NORMAL_LO, dtype=torch.float32, device=device)
     u = torch.maximum(lo, f * 2.0 + lo)
     return (SQRT2 * erfinv(u)).reshape(tuple(shape))
+
+
+def stochastic_round_bf16(x, key: Key, offset: int = 0) -> torch.Tensor:
+    """``x`` (float32) to bfloat16 with stochastic rounding: the low 16
+    bits of element ``offset + i``'s draw of ``key`` added to ``x[i]``'s bit
+    pattern (a uint32 add that wraps), the low half masked off, the top
+    half kept (the exact bf16 of the masked float, NaNs apart).  With
+    ``key = split(k)[1]`` and ``offset`` 0 this is the reference's
+    ``(bits + randint(k, shape, 0, 2**16)) & 0xFFFF0000``; ``offset`` places
+    the tensor inside the stacked leaf whose draws it takes."""
+    n = x.numel()
+    noise = _bits(key, n, x.device, offset) & 0xFFFF
+    pattern = x.detach().to(torch.float32).contiguous().view(torch.int32).reshape(-1)
+    top = (((pattern.to(torch.int64) & MASK) + noise) & MASK) >> 16
+    top = torch.where(top >= 2**15, top - 2**16, top).to(torch.int16)
+    return top.view(torch.bfloat16).reshape(x.shape)
+
+
+def stochastic_round_bf16_cuda(path, x, offset: int = 0) -> torch.Tensor:
+    """:func:`stochastic_round_bf16` on the card: one launch over ``x``
+    (float32, contiguous), the key derived from the path's int32 words
+    (:func:`path_words`) in ``path``, a tensor on the card, so the words
+    (AdamW's step count among them) never pass through the host."""
+    if path.device.type != "cuda" or path.dtype != torch.int32 or path.dim() != 1:
+        raise ValueError(f"need the path words as an int32 vector on the card; got "
+                         f"{path.dtype} {tuple(path.shape)} on {path.device}")
+    if not path.is_contiguous() or path.numel() < 1:
+        raise ValueError("the path words must be a contiguous, non-empty vector")
+    if x.device != path.device or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"need a contiguous float32 tensor on {path.device}; got "
+                         f"{x.dtype} on {x.device}")
+    if offset < 0 or offset + x.numel() >= 2**63:
+        raise ValueError(f"counters {offset} .. {offset + x.numel()} out of range")
+    out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    build.launch("sr_bf16", "prng", "sr_bf16", path.data_ptr(), path.numel(), x.data_ptr(),
+                 out.data_ptr(), x.numel(), offset, torch.cuda.current_stream(x.device).cuda_stream)
+    return out
 
 
 def sc_draws_ref(path: Sequence[int], n_ports: int, n_bits: int, device="cpu"):

@@ -117,7 +117,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="", help="write the report JSON here")
+    # the old static driver's flag, kept as an alias of --slots
+    ap.add_argument("--batch", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.batch:
+        args.slots = args.batch
 
     try:
         site_backends = parse_site_backends(

@@ -19,9 +19,21 @@ Variation-aware training, each step against a chip of a sampled fleet:
 ``--fleet N`` makes every phase that touches the hardware (all but exact
 ones, and those that set their own ``fleet=``) train against a fleet of N
 chips, sigmas times ``--variation-scale``, sampled from ``--fleet-seed``
-(default ``--seed`` + 7919).  The reference's ``--backward``,
-``--gate-frac`` and ``--optim-compress`` wait for the approximate
-backward and compressed optimizer (ROADMAP A6).
+(default ``--seed`` + 7919).
+
+The approximate backward and the compressed optimizer state:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b --smoke \
+      --device cpu --backend approx_mult --phase exact:2 \
+      --phase inject:4:bwd=approx --backward auto --gate-frac 0.5 \
+      --optim-compress sm3
+
+``--backward`` gates every phase that does not set its own (``--phase
+...:backward=``): ``approx`` opens the ``--gate-frac`` least sensitive
+sites' gradient matmuls to the int8 grid, the gate derived once at a
+phase's entry; ``auto`` derives it again every ``gate_every`` steps.
+Without ``--phase`` it wraps the run in one phase of the resolved mode.
+``--optim-compress`` stores AdamW's first moment in bf16 (``bf16``) and
+factors its second moments (``sm3``).
 """
 from __future__ import annotations
 
@@ -73,6 +85,15 @@ def main(argv=None) -> None:
                     help="multiplier on every chip-variation sigma")
     ap.add_argument("--fleet-seed", type=int, default=None,
                     help="chip-sampling seed (default: --seed + 7919)")
+    ap.add_argument("--backward", default=None, choices=["exact", "approx", "auto"],
+                    help="approximate-backward gating for every phase (sensitivity-gated "
+                         "int8 gradient matmuls; per phase: --phase ...:backward=...)")
+    ap.add_argument("--gate-frac", type=float, default=0.75,
+                    help="fraction of sites gated onto the approximate backward (the most "
+                         "sensitive rest keep the exact one)")
+    ap.add_argument("--optim-compress", default="none", choices=["none", "bf16", "sm3"],
+                    help="quantized optimizer state: bf16 momentum (stochastic rounding), "
+                         "or sm3 factored second moments on top")
     ap.add_argument("--inject-steps", type=int, default=80)
     ap.add_argument("--finetune-steps", type=int, default=20)
     ap.add_argument("--steps", type=int, default=None, help="total (exact mode)")
@@ -120,8 +141,17 @@ def main(argv=None) -> None:
         phases = tuple(dataclasses.replace(p, fleet=args.fleet)
                        if p.mode != TrainMode.NO_MODEL and not p.fleet else p
                        for p in phases)
+    explicit_phases = bool(phases)
+    if args.backward and not phases:
+        # the gated backward rides on the phase pipeline: one phase of the
+        # resolved mode
+        phases = (Phase(approx.mode, args.steps or (args.inject_steps + args.finetune_steps)),)
+    if args.backward:
+        # as --fleet: every phase that does not set its own
+        phases = tuple(dataclasses.replace(p, backward=args.backward, gate_frac=args.gate_frac)
+                       if p.backward == "exact" else p for p in phases)
     if phases:
-        if args.steps is not None:
+        if args.steps is not None and explicit_phases:
             ap.error("--steps conflicts with --phase: the total is the sum "
                      "of the phase budgets")
         total = sum(p.steps for p in phases)
@@ -131,6 +161,7 @@ def main(argv=None) -> None:
             warmup_steps=max(total // 20, 1),
             phases=phases,
             checkpoint_every=max(total // 4, 1),
+            optim_compress=args.optim_compress,
         )
     elif args.fleet and approx.approx_backends:
         # the legacy two-phase split, made variation-aware: the fleet rides
@@ -147,6 +178,7 @@ def main(argv=None) -> None:
             warmup_steps=max(total // 20, 1),
             phases=tuple(legacy),
             checkpoint_every=max(total // 4, 1),
+            optim_compress=args.optim_compress,
         )
     else:
         total = args.steps or (args.inject_steps + args.finetune_steps)
@@ -157,6 +189,7 @@ def main(argv=None) -> None:
             inject_steps=args.inject_steps if approx.approx_backends else 0,
             finetune_steps=args.finetune_steps if approx.approx_backends else 0,
             checkpoint_every=max(total // 4, 1),
+            optim_compress=args.optim_compress,
         )
     data = SyntheticLM(cfg.vocab_size, args.seq_len, args.batch, seed=args.seed)
     trainer = Trainer(

@@ -2,7 +2,7 @@
 ``padded_vocab``, ``init_params``, ``init_calibration``,
 ``_attn_block_apply``, ``_embed``, ``_lm_head`` and ``apply_model`` with
 ``return_cache``, ``calib``, ``collect``, ``remat``, ``chip``, ``correct``,
-``calib_exact_ref``, ``blend`` and ``backend_idx``).
+``calib_exact_ref``, ``blend``, ``backend_idx`` and ``bwd_gate``).
 
 The parameters are an ``nn.Module`` tree (:class:`Transformer`); a Python
 loop over ``layers`` takes the place of the reference's ``lax.scan``.
@@ -179,6 +179,7 @@ def apply_model(
     calib_exact_ref: bool = False,
     blend=None,
     backend_idx=None,
+    bwd_gate=None,
 ) -> ApplyOutput:
     """Full-sequence forward.  batch: {'tokens': [B, T] int}.
 
@@ -213,6 +214,11 @@ def apply_model(
     :func:`repro_torch.core.switch.model_indices`' ``{"layers": [L, S],
     "head": [S]}`` giving each layer its own map.  Host arrays: the index
     is read on the host.
+
+    ``bwd_gate`` (int32 ``[n_sites]`` over ``switch.SITE_ORDER``, a host
+    array) is every layer's and the head's ``ApproxCtx.bwd_gate``: a site
+    gated open runs its gradient matmuls on the int8 grid (the approximate
+    backward); the forward is the same whatever the mask.
     """
     check_dense(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
@@ -227,9 +233,12 @@ def apply_model(
         b_head = np.asarray(backend_idx["head"], np.int32)
     elif backend_idx is not None:
         b_head = np.asarray(backend_idx, np.int32)
+    if bwd_gate is not None:
+        bwd_gate = np.asarray(bwd_gate, np.int32)
     ctx = ApproxCtx(cfg=approx, rng=tuple(rng) if rng is not None else (0,), draws=draws,
                     collect=collect, chip=chip, correct=correct,
-                    calib_exact_ref=calib_exact_ref, blend=blend, site_idx=b_head)
+                    calib_exact_ref=calib_exact_ref, blend=blend, site_idx=b_head,
+                    bwd_gate=bwd_gate)
     block = checkpoint_policy.wrap_block(_attn_block_apply, "none" if return_cache else remat)
     ks, vs, coll = [], [], []
     for l, p in enumerate(params.layers):

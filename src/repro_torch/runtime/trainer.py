@@ -43,9 +43,13 @@ it, and is re-raised.
   built once per size.  The chip is a runtime argument of the chip-aware
   steps: its emulated forward and calibration stats are that chip's, and
   the adaptive calibration compares losses of one chip only.
-
-The gated approximate backward (``Phase.backward``, ROADMAP A6) is
-refused.
+* **Approximate backward** (``Phase.backward``): when any phase gates the
+  backward, every train step is built bwd-aware and takes the gate mask,
+  so exact phases pass zeros through the same step.  An ``"approx"``
+  phase derives its sensitivity gate (:func:`repro_torch.search.
+  sensitivity.backward_gate`, through the run's step cache) once at its
+  entry, an ``"auto"`` phase every ``gate_every`` steps; each mask is kept
+  per phase, so a replay after a restore reuses it.
 """
 from __future__ import annotations
 
@@ -58,6 +62,7 @@ import numpy as np
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs.base import ApproxConfig, CalibPolicy, Phase, TrainConfig, TrainMode
 from repro_torch.convert import train_state_layout
+from repro_torch.core import switch as switch_lib
 from repro_torch.core.schedule import CalibrationController, PhasePlan
 from repro_torch.data import SyntheticLM
 from repro_torch.hw import Fleet, VariationModel
@@ -78,10 +83,11 @@ class TrainReport:
     phase_steps: Dict[str, int] = dataclasses.field(default_factory=dict)
     compile_stats: Dict[str, int] = dataclasses.field(default_factory=dict)
     fleet_steps: int = 0  # steps trained against a sampled device instance
-    # --- approximate-backward accounting (every step exact: A6) --------
+    # --- approximate-backward accounting ------------------------------
     backward_steps: Dict[str, int] = dataclasses.field(default_factory=dict)
-    gate_refreshes: int = 0
-    gate_events: List[Tuple[int, int]] = dataclasses.field(default_factory=list)
+    gate_refreshes: int = 0                 # sensitivity-gate derivations
+    gate_events: List[Tuple[int, int]] = dataclasses.field(
+        default_factory=list)               # (step, open-site count)
     # --- the port's: each entry of ``losses``'s global step, and whether
     # a calibration batch ran before it (replayed steps appear again) ---
     steps: List[int] = dataclasses.field(default_factory=list)
@@ -122,11 +128,6 @@ class Trainer:
         self.device = resolve_device(device) if state is None else None
 
         self.plan = PhasePlan.from_configs(approx, tcfg)
-        for p in self.plan.phases:
-            if p.backward != "exact":
-                raise NotImplementedError(
-                    f"phase {p.name!r}: the gated approximate backward (Phase.backward="
-                    f"{p.backward!r}) is not yet ported to repro_torch (ROADMAP A6)")
         self.controller = CalibrationController(self.plan, approx)
         self.steps = StepCache(model, approx, tcfg)
         self._state = state          # the live state: restored in place
@@ -135,6 +136,12 @@ class Trainer:
         self.variation = variation if variation is not None else VariationModel()
         self.fleet_seed = fleet_seed if fleet_seed is not None else seed + 7919
         self._fleets: Dict[int, Fleet] = {}  # fleet size -> its chips
+        # the approximate backward: with any phase gated, every train step
+        # is bwd-aware and exact phases pass a zeros mask
+        self._bwd_any = self.plan.any_gated_backward
+        self._gates: Dict[int, Tuple[int, np.ndarray]] = {}  # phase -> (epoch, mask)
+        self._gate_refreshes = 0
+        self._gate_events: List[Tuple[int, int]] = []
 
     # ------------------------------------------------------------------
     def _state_like(self):
@@ -195,9 +202,34 @@ class Trainer:
         """The train step and its label for a global step (cache-backed)."""
         index, phase, _ = self.plan.phase_at(step)
         fn = self.steps.train(phase.mode, lr_scale=phase.lr_scale,
-                              microbatches=phase.microbatches, chip_aware=chip_aware)
+                              microbatches=phase.microbatches, chip_aware=chip_aware,
+                              bwd_aware=self._bwd_any)
         label = phase.name if len(self.plan.phases) > 1 else phase.mode.value
         return fn, label, phase
+
+    def _bwd_gate_for(self, index: int, phase: Phase, step: int, sip: int, state, batch):
+        """This step's approximate-backward mask (None: no phase gates).
+        An ``"exact"`` phase passes zeros; ``"approx"`` derives the
+        sensitivity gate once at its entry, ``"auto"`` every
+        ``phase.gate_every`` steps of the phase; a mask is kept per phase
+        index.  Derivations run through the run's step cache, so every
+        refresh shares one blend-grad step."""
+        if not self._bwd_any:
+            return None
+        if phase.backward == "exact":
+            return np.zeros(len(switch_lib.SITE_ORDER), np.int32)
+        epoch = sip // phase.gate_every if phase.backward == "auto" else 0
+        cached = self._gates.get(index)
+        if cached is not None and cached[0] == epoch:
+            return cached[1]
+        from repro_torch.search import sensitivity  # deferred: search -> training steps
+
+        mask = sensitivity.backward_gate(self.model, state["params"], batch, self.approx,
+                                         frac=phase.gate_frac, seed=self.seed, fns=self.steps)
+        self._gates[index] = (epoch, mask)
+        self._gate_refreshes += 1
+        self._gate_events.append((step, int(mask.sum())))
+        return mask
 
     # ------------------------------------------------------------------
     def run(self, total_steps: Optional[int] = None) -> TrainReport:
@@ -229,7 +261,7 @@ class Trainer:
                 rng = (self.seed + 17, step)  # fold_in(PRNGKey(seed + 17), step)
                 batch = self.data.batch_at(step)
                 # a variation-aware phase's device instance for this step
-                _, cur_phase, _ = self.plan.phase_at(step)
+                cur_index, cur_phase, cur_sip = self.plan.phase_at(step)
                 chip = self._chip_for(cur_phase, step)
                 t0 = time.perf_counter()
                 did_calibrate = self.controller.begin_step(step)
@@ -248,7 +280,11 @@ class Trainer:
                 fn, label, phase = self._step_fn(step, chip_aware=chip is not None)
                 self._trained = True
                 fleet_steps += chip is not None
-                state, metrics = fn(state, batch, rng, chip)
+                gate = self._bwd_gate_for(cur_index, cur_phase, step, cur_sip, state, batch)
+                if gate is None:
+                    state, metrics = fn(state, batch, rng, chip)
+                else:
+                    state, metrics = fn(state, batch, rng, chip, bwd_gate=gate)
                 self._state = state
                 loss = float(metrics["loss"])
                 dt = time.perf_counter() - t0
@@ -302,6 +338,8 @@ class Trainer:
             compile_stats=self.steps.stats(),
             fleet_steps=fleet_steps,
             backward_steps=backward_steps,
+            gate_refreshes=self._gate_refreshes,
+            gate_events=list(self._gate_events),
             steps=steps,
             calibrated=calibrated,
         )

@@ -36,7 +36,7 @@ from repro_torch.launch.dryrun import per_site_macs
 _POLY_MACS_PER_COEFF = 2.0  # Horner step: one multiply + one add per degree
 
 # Per-MAC price of a backward matmul routed through the int8 datapath (the
-# reference's gated VJP; ROADMAP A6).  An 8-bit multiply-accumulate is ~4x
+# gated VJP of repro_torch.core.injection).  An 8-bit multiply-accumulate is ~4x
 # cheaper than the fp32 exact MAC in the paper's Tab. 1 op-cost scale
 # (multiplier energy quadratic in operand width); the int8 quantisation of
 # the operands is amortised over the contraction dim like the correction

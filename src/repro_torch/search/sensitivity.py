@@ -1,7 +1,8 @@
 """Per-site approximation-sensitivity profiling (port of
 ``repro.search.sensitivity``: ``SiteSensitivity``, ``SensitivityProfile``,
 ``one_site_config``, ``_blend_grad_builder``, ``_switch_cfg``,
-``eval_loss``, ``fleet_eval_losses`` and ``profile_sensitivity``).
+``eval_loss``, ``fleet_eval_losses``, ``backward_sensitivities``,
+``backward_gate`` and ``profile_sensitivity``).
 
 For every (projection site, candidate backend) pair, two signals on a
 fixed profiling batch:
@@ -20,15 +21,18 @@ Every step comes from a shared :class:`~repro_torch.training.steps.
 CompiledFnCache` keyed on what it computes, so the Pareto search scoring
 the same configs later reuses each built step; under ``dispatch="switch"``
 the whole probe grid shares two (one eval, one blend-grad).  Deterministic
-under a fixed seed.  The reference's ``backward_sensitivities`` and
-``backward_gate`` wait for the approximate backward (ROADMAP A6).
+under a fixed seed.  :func:`backward_gate` ranks the sites by their
+first-order sensitivity alone and opens the least sensitive to the
+approximate backward (``Phase(backward="approx" | "auto")``).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Iterable, Optional, Sequence, Tuple
+import math
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ApproxConfig, Backend, TrainMode
@@ -174,6 +178,71 @@ def fleet_eval_losses(model: Model, params, batch, approx: ApproxConfig, rng,
                      for chip in chips)
     fn = fns.get(("hw_eval_chip", approx), lambda: make_eval_step(model, approx))
     return tuple(float(fn(state, batch, rng, chip)["loss"]) for chip in chips)
+
+
+def backward_sensitivities(model: Model, params, batch, base: ApproxConfig, *,
+                           probe_backend=None, seed: int = 0,
+                           fns: Optional[CompiledFnCache] = None, dispatch: str = "switch",
+                           switch_backends=None,
+                           sites: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """``{site: |first_order|}`` against one probe backend: the blend-grad
+    half of :func:`profile_sensitivity` (no hardware evals, no energy),
+    enough to rank sites for the approximate backward's gate.
+    ``probe_backend`` defaults to the first of ``base``'s approximate
+    backends, else ``approx_mult`` (the int8 datapath the gated backward
+    emulates).  Under ``dispatch="switch"`` (the default) every site shares
+    one blend-grad step of ``fns``, so a second derivation builds
+    nothing."""
+    fns = fns if fns is not None else CompiledFnCache()
+    if probe_backend is None:
+        ab = base.approx_backends
+        if ab:
+            probe_backend = ab[0].value if isinstance(ab[0], Backend) else str(ab[0])
+        else:
+            probe_backend = Backend.APPROX_MULT.value
+    B, T = batch["tokens"].shape
+    costs = costmodel.site_costs(model.cfg, seq_len=T, batch=B)
+    sites = tuple(sites) if sites is not None else tuple(costs)
+    rng = (seed,)  # the reference's PRNGKey(seed)
+    if dispatch == "switch" and switch_backends is None:
+        switch_backends = (probe_backend,)
+    out = {}
+    for site in sites:
+        if site not in costs:
+            continue
+        probe = one_site_config(base, site, probe_backend)
+        if dispatch == "switch":
+            ccfg = _switch_cfg(probe, switch_backends)
+            grad_fn = fns.get(("blend_grad_switch", ccfg),
+                              _blend_grad_builder(model, ccfg, switch_aware=True))
+            fo = float(grad_fn(params, batch, rng, 0.0, _switch_idx(probe, ccfg)))
+        else:
+            grad_fn = fns.get(("blend_grad", probe), _blend_grad_builder(model, probe))
+            fo = float(grad_fn(params, batch, rng, 0.0))
+        out[site] = abs(fo)
+    return out
+
+
+def backward_gate(model: Model, params, batch, base: ApproxConfig, *, frac: float = 0.75,
+                  probe_backend=None, seed: int = 0, fns: Optional[CompiledFnCache] = None,
+                  dispatch: str = "switch", switch_backends=None) -> np.ndarray:
+    """The approximate backward's gate: the int32 ``[n_sites]`` mask over
+    ``switch.SITE_ORDER`` that ``ApproxCtx.bwd_gate`` reads.  The sites are
+    ranked by :func:`backward_sensitivities`, most sensitive first (ties
+    by site name); the ``ceil((1 - frac) * n)`` most sensitive keep the
+    exact backward and the rest open.  Sites this architecture lacks stay
+    closed."""
+    sens = backward_sensitivities(model, params, batch, base, probe_backend=probe_backend,
+                                  seed=seed, fns=fns, dispatch=dispatch,
+                                  switch_backends=switch_backends)
+    n = len(sens)
+    mask = np.zeros(len(switch_lib.SITE_ORDER), np.int32)
+    if n == 0 or frac <= 0.0:
+        return mask
+    n_exact = int(math.ceil((1.0 - frac) * n))
+    for site in sorted(sens, key=lambda s: (-sens[s], s))[n_exact:]:
+        mask[switch_lib.site_pos(site)] = 1
+    return mask
 
 
 def profile_sensitivity(

@@ -1,8 +1,8 @@
 """Train, calibration and eval steps, and the caches that hold them (port
 of ``repro.training.steps``: ``init_train_state``, ``make_train_step``,
 ``make_calibration_step``, ``make_eval_step``, ``CompiledFnCache`` and
-``StepCache``, with their chip- and switch-aware variants; the
-backward-gate-aware variant waits for ROADMAP A6).
+``StepCache``, with their chip-, switch- and backward-gate-aware
+variants).
 
 Every step takes a trailing ``chip`` (default None; a
 :class:`repro_torch.hw.variation.ChipProfile`): its emulated forward and
@@ -10,7 +10,10 @@ its calibration stats are then that device instance's (variation-aware
 training).  A switch-aware train or eval step also takes ``backend_idx``
 after it (a :mod:`repro_torch.core.switch` index array or
 ``model_indices`` dict): the site->backend map is an argument, so every
-map shares one step built on ``switch.canonical(approx)``.
+map shares one step built on ``switch.canonical(approx)``.  A
+backward-gate-aware train step takes ``bwd_gate`` last (an int32
+``[n_sites]`` host mask, ``ApproxCtx.bwd_gate``): exact and gated phases
+share the one step, exact ones passing zeros.
 
 The paper's schedule alternates graphs (INJECT or bit-accurate MODEL
 forward), so each step is built for one mode.  The reference jits its
@@ -49,10 +52,8 @@ def init_train_state(model: Model, seed: int, approx: ApproxConfig,
                      params=None) -> Dict[str, Any]:
     """A fresh train state: ``model.init(seed)`` on ``device`` (or the
     given ``params``, which are trained in place from here on), every
-    weight made trainable, AdamW's state, zero calibration stats."""
-    if tcfg is not None and tcfg.optim_compress != "none":
-        raise NotImplementedError(
-            "compressed optimizer state is not yet ported to repro_torch (ROADMAP A6)")
+    weight made trainable, AdamW's state (``tcfg.optim_compress``), zero
+    calibration stats."""
     device = resolve_device(device)
     if params is None:
         params = model.init(seed, device)
@@ -60,7 +61,8 @@ def init_train_state(model: Model, seed: int, approx: ApproxConfig,
         p.requires_grad_(True)
     return {
         "params": params,
-        "opt": adamw_init(dict(params.named_parameters())),
+        "opt": adamw_init(dict(params.named_parameters()),
+                          tcfg.optim_compress if tcfg is not None else "none"),
         "calib": model.init_calibration(approx, params.device),
         "step": 0,
     }
@@ -76,9 +78,9 @@ def _batch(batch, device) -> Dict[str, torch.Tensor]:
 
 
 def _loss(params, batch, model: Model, approx, calib, rng, tcfg: TrainConfig, chip=None,
-          backend_idx=None):
+          backend_idx=None, bwd_gate=None):
     out = model.apply(params, batch, approx=approx, calib=calib, rng=rng, remat=tcfg.remat,
-                      chip=chip, backend_idx=backend_idx)
+                      chip=chip, backend_idx=backend_idx, bwd_gate=bwd_gate)
     return lm_loss(out.logits, batch["labels"])
 
 
@@ -96,11 +98,14 @@ def _split_micro(batch, n: int, i: int):
 
 
 def make_train_step(model: Model, approx: ApproxConfig, tcfg: TrainConfig,
-                    mode: Optional[TrainMode] = None, *, switch_aware: bool = False):
+                    mode: Optional[TrainMode] = None, *, switch_aware: bool = False,
+                    bwd_aware: bool = False):
     """A train step for one approx mode (default: ``approx.mode``):
     ``step(state, batch, rng, chip=None) -> (state, metrics)``, or with
     ``switch_aware`` ``step(state, batch, rng, chip=None, backend_idx=...)``
-    (pass the canonical config, ``switch.canonical``).
+    (pass the canonical config, ``switch.canonical``).  With ``bwd_aware``
+    the step also needs ``bwd_gate=`` (the approximate backward's mask,
+    zeros for an exact backward).
 
     With ``tcfg.microbatches`` > 1 the batch splits into that many
     microbatches along its rows, each with ``rng`` + ``(i,)``; their
@@ -109,15 +114,18 @@ def make_train_step(model: Model, approx: ApproxConfig, tcfg: TrainConfig,
     if mode is not None:
         approx = dataclasses.replace(approx, mode=mode)
 
-    def step(state, batch, rng: Tuple[int, ...], chip=None, backend_idx=None):
+    def step(state, batch, rng: Tuple[int, ...], chip=None, backend_idx=None, bwd_gate=None):
         backend_idx = _switch_arg(switch_aware, backend_idx)
+        if bwd_aware != (bwd_gate is not None):
+            raise TypeError("a bwd-aware step needs bwd_gate, and only it takes one "
+                            "(bwd_aware=True)")
         params, calib = state["params"], state["calib"]
         named = dict(params.named_parameters())
         batch = _batch(batch, params.device)
         rng = tuple(rng)
 
         def grad_one(mb, r):
-            loss = _loss(params, mb, model, approx, calib, r, tcfg, chip, backend_idx)
+            loss = _loss(params, mb, model, approx, calib, r, tcfg, chip, backend_idx, bwd_gate)
             gs = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
             gs = [torch.zeros_like(t) if g is None else g for g, t in zip(gs, named.values())]
             return dict(zip(named, gs)), loss.detach()
@@ -229,9 +237,11 @@ class StepCache(CompiledFnCache):
     (``switch.canonical``), so every map of a mode shares it; its map is
     its ``backend_idx`` argument.
 
+    A backward-gate-aware step (``bwd_aware``) is keyed only on *that* it
+    takes a gate, so exact and gated phases share one entry.
+
     The reference jits each entry and counts its traces; the port's steps
-    run eagerly, so :meth:`stats` reports only ``{"built": n}``.  The
-    backward-gate-aware variant raises (ROADMAP A6).
+    run eagerly, so :meth:`stats` reports only ``{"built": n}``.
     """
 
     def __init__(self, model: Model, approx: ApproxConfig, tcfg: TrainConfig):
@@ -259,9 +269,6 @@ class StepCache(CompiledFnCache):
     def train(self, mode: Optional[TrainMode] = None, *, lr_scale: float = 1.0,
               microbatches: int = 0, chip_aware: bool = False, switch_aware: bool = False,
               bwd_aware: bool = False) -> Callable:
-        if bwd_aware:
-            raise NotImplementedError(
-                "backward-gate-aware steps are not yet ported to repro_torch (ROADMAP A6)")
         approx = self._resolve(mode)
         if switch_aware:
             approx = switch_lib.canonical(approx)
@@ -269,7 +276,7 @@ class StepCache(CompiledFnCache):
                chip_aware, switch_aware, bwd_aware)
         return self.get(key, lambda: make_train_step(
             self.model, approx, self._tcfg_for(lr_scale, microbatches),
-            switch_aware=switch_aware))
+            switch_aware=switch_aware, bwd_aware=bwd_aware))
 
     def calibration(self, *, chip_aware: bool = False) -> Callable:
         # calibration stays static: per-(site, backend) stat shapes cannot

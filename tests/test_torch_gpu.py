@@ -1350,3 +1350,114 @@ def test_switch_per_row_selector_waits_for_no_host(cuda):
     waits = [str(w.message) for w in caught
              if "synchronizing" in str(w.message) and "prototype" not in str(w.message)]
     assert not waits, waits
+
+
+# ---------------------------------------------------------------------------
+# The approximate backward and the compressed optimizer state
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,offset", [((2048, 2048), 0), ((3, 7), 5 * 21),
+                                          ((1000,), 2**32 - 300), ((0,), 0)])
+def test_stochastic_round_kernel_bitwise(cuda, shape, offset):
+    """The rounding entry of prng.cu against its plain version on the CPU,
+    bitwise (the draws are integer threefry, the add and mask exact), one
+    launch a call, counters past 2^32 included."""
+    from repro_torch.kernels import ops, prng
+
+    g = torch.Generator().manual_seed(21)
+    x = torch.randn(shape, generator=g) * 10.0 ** torch.randint(-30, 30, shape, generator=g)
+    path = torch.tensor(prng.path_words((0x5F3759DF, 12, 3, 1)), dtype=torch.int32)
+    before = build.LAUNCHES["sr_bf16"]
+    got = ops.stochastic_round_bf16(x.to(cuda), path.to(cuda), offset)
+    assert build.LAUNCHES["sr_bf16"] == before + 1
+    want = ops.stochastic_round_bf16(x, path, offset)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == shape
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compress", ["bf16", "sm3"])
+def test_adamw_compressed_on_the_card(cuda, compress):
+    """Three AdamW steps of the qwen2.5-3b smoke config's state on the card
+    and on the CPU from the same gradients (below the clip, so the clip
+    scale is 1 on both): m and v (SM3's factors) bitwise, one rounding
+    launch per parameter a step; the master within the CPU tests' ADAMW
+    tolerance (rtol 2e-6, atol 1e-9: the two libms' cos and pow)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+
+    tcfg = TrainConfig(optim_compress=compress, warmup_steps=1, learning_rate=2e-3)
+    model = build_model(get_smoke_config("qwen2.5-3b"))
+    states = {}
+    for dev in ("cpu", cuda):
+        named = dict(model.init(0, dev).named_parameters())
+        states[str(dev)] = (named, adamw.adamw_init(named, compress))
+    g = torch.Generator().manual_seed(4)
+    cpu_named, cpu_opt = states["cpu"]
+    card_named, card_opt = states[str(cuda)]
+    for _ in range(3):
+        grads = {n: torch.randn(t.shape, generator=g) * 1e-4 for n, t in cpu_named.items()}
+        adamw.adamw_update(grads, cpu_opt, cpu_named, tcfg)
+        before = build.LAUNCHES["sr_bf16"]
+        adamw.adamw_update({n: t.to(cuda) for n, t in grads.items()}, card_opt, card_named,
+                           tcfg)
+        assert build.LAUNCHES["sr_bf16"] == before + len(card_named)
+    for n in cpu_named:
+        assert torch.equal(card_opt["m"][n].cpu(), cpu_opt["m"][n]), n
+        v, w = card_opt["v"][n], cpu_opt["v"][n]
+        for a, b in ((v["r"], w["r"]), (v["c"], w["c"])) if isinstance(v, dict) else ((v, w),):
+            assert torch.equal(a.cpu(), b), n
+        torch.testing.assert_close(card_opt["master"][n].cpu(), cpu_opt["master"][n],
+                                   rtol=2e-6, atol=1e-9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["exact", "approx_mult", "analog"])
+def test_gated_backward_waits_for_no_host(cuda, backend):
+    """A projection's backward with its gate open makes the host wait for
+    the card no more often than with it closed (torch's sync debug mode):
+    the int8 grid's scales and floors stay on the card."""
+    import warnings
+
+    import numpy as np
+
+    from repro_torch.configs.base import AnalogParams, ApproxConfig, Backend, TrainMode
+    from repro_torch.core import switch
+    from repro_torch.core.approx_linear import ApproxCtx, dense
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    w = (torch.randn(512, 1024, generator=g, device=cuda) * 0.04).to(torch.bfloat16)
+    x = torch.randn(64, 512, generator=g, device=cuda).to(torch.bfloat16)
+    mode = TrainMode.NO_MODEL if backend == "exact" else TrainMode.MODEL
+    cfg = ApproxConfig(backend=Backend(backend), mode=mode,
+                       analog=AnalogParams(array_size=64))
+
+    def step(gate):
+        xd, wd = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y = dense(xd, wd, site="mlp_up", ctx=ApproxCtx(cfg=cfg, rng=(1,), bwd_gate=gate))
+        return torch.autograd.grad(y.float().sum(), (xd, wd))
+
+    def waits(gate):
+        step(gate)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                step(gate)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return len([c for c in caught if "synchronizing" in str(c.message)
+                    and "prototype" not in str(c.message)])
+
+    n = len(switch.SITE_ORDER)
+    closed, opened = waits(np.zeros(n, np.int32)), waits(np.ones(n, np.int32))
+    assert opened == closed, (closed, opened)
+    dx0, dw0 = step(np.zeros(n, np.int32))
+    dx1, dw1 = step(np.ones(n, np.int32))
+    assert torch.isfinite(dx1).all() and torch.isfinite(dw1).all()
+    assert not torch.equal(dw0, dw1)

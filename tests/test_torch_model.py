@@ -202,7 +202,8 @@ def test_unported_parts_raise():
     backend is ported: sc and analog since the second slice; every train
     mode since the training slice; every remat policy since the Trainer
     slice; calibration against the exact matmul and on a chip since the
-    chip-fleet slice)."""
+    chip-fleet slice; the compressed optimizer state since the approximate
+    backward's slice)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import injection, registry
@@ -210,14 +211,29 @@ def test_unported_parts_raise():
     with pytest.raises(NotImplementedError):
         get_config("yi-6b")
     assert set(registry.names()) == {b.value for b in TBackend}
-    with pytest.raises(NotImplementedError):
-        TrainConfig(optim_compress="bf16")
+    assert TrainConfig(optim_compress="bf16").optim_compress == "bf16"  # ported with A6
+    with pytest.raises(ValueError, match="optim_compress"):
+        TrainConfig(optim_compress="int4")
     with pytest.raises(ValueError):  # every remat policy is ported; a bad name raises
         TrainConfig(remat="blocks")
     x, w = torch.ones((2, 8)), torch.ones((8, 4))
     cfg = TApprox(backend=TBackend.ANALOG, mode=TMode.MODEL)
     _, stats = injection.calibrate_matmul(x, w, cfg, None, exact_ref=True)
     assert stats["mean"].shape == (2,)  # analog's degree 0, floored at 1
+
+
+def test_serve_cli_batch_is_slots(tmp_path):
+    """The reference's hidden ``--batch N`` (the old static driver's flag)
+    serves as ``--slots N``."""
+    from repro_torch.launch import serve
+
+    out = tmp_path / "serve.json"
+    serve.main(["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu", "--requests", "3",
+                "--backends", "exact", "--batch", "2", "--gen", "2", "--prompt-len", "4",
+                "--out", str(out)])
+    import json
+
+    assert json.loads(out.read_text())["n_slots"] == 2
 
 
 def test_serve_cli_smoke(tmp_path):

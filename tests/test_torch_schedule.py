@@ -297,8 +297,8 @@ def test_step_cache_keys_and_refusals():
     """Phases that share (mode, lr scale, microbatches) share one built
     step; a chip-aware step is an entry of its own, one for every chip;
     a switch-aware step is keyed on the canonical config, so every map
-    shares it; the backward-gate-aware variant raises, naming its ROADMAP
-    item; ``stats`` counts built steps only."""
+    shares it; a backward-gate-aware step is an entry of its own, one for
+    every gate; ``stats`` counts built steps only."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import build_model
     from repro_torch.training.steps import StepCache
@@ -327,8 +327,12 @@ def test_step_cache_keys_and_refusals():
     assert other.train(tb.TrainMode.MODEL, switch_aware=True) is sw
     assert other.eval(switch_aware=True) is cache.eval(switch_aware=True)
     assert cache.stats() == {"built": 9}
-    with pytest.raises(NotImplementedError, match="A6"):
-        cache.train(tb.TrainMode.MODEL, bwd_aware=True)
+    # a bwd-aware step is keyed only on taking a gate: exact and gated
+    # phases share it
+    gated = cache.train(tb.TrainMode.MODEL, bwd_aware=True)
+    assert gated is cache.train(tb.TrainMode.MODEL, bwd_aware=True)
+    assert gated is not cache.train(tb.TrainMode.MODEL)
+    assert cache.stats() == {"built": 10}
 
 
 def test_wrap_block_policies():

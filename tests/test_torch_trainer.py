@@ -130,8 +130,8 @@ def test_trainer_tracks_the_reference(tmp_path):
 
 def test_restart_budget_and_refusals(tmp_path):
     """A fault that recurs is re-raised once the budget is spent; a fleet
-    phase is taken (tests/test_torch_trainer_fleet.py runs one), a
-    gated-backward phase refused, naming its ROADMAP item."""
+    phase is taken (tests/test_torch_trainer_fleet.py runs one), and so is a
+    gated-backward phase (tests/test_torch_approx_bwd.py runs them)."""
 
     def always(s):
         if s == 1:
@@ -143,6 +143,5 @@ def test_restart_budget_and_refusals(tmp_path):
         tr.run()
     assert _port_trainer(tmp_path / "A3", plan=("exact:1", "inject:3:fleet=4"),
                          state=None).plan.phases[1].fleet == 4
-    for spec, item in (("inject:3:bwd=approx", "A6"),):
-        with pytest.raises(NotImplementedError, match=item):
-            _port_trainer(tmp_path / item, plan=("exact:1", spec), state=None)
+    gated = _port_trainer(tmp_path / "A6", plan=("exact:1", "inject:3:bwd=approx"), state=None)
+    assert gated.plan.phases[1].backward == "approx" and gated._bwd_any
