@@ -1,7 +1,8 @@
 """Architecture registry: ``get_config("qwen2.5-3b")``.
 
-The qwen2.5-3b entry and the paper's own models (``paper-tinyconv``,
-``paper-resnet-tiny``) are ported; the reference's other archs raise.
+The qwen2.5-3b entry, the MoE family's dbrx-132b and grok-1-314b, and the
+paper's own models (``paper-tinyconv``, ``paper-resnet-tiny``) are ported;
+the reference's other archs raise.
 """
 from __future__ import annotations
 
@@ -21,12 +22,13 @@ _ARCH_MODULES: Dict[str, str] = {
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
     "paper-tinyconv": "repro_torch.configs.paper_tiny",
     "paper-resnet-tiny": "repro_torch.configs.paper_tiny",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "grok-1-314b": "repro_torch.configs.grok1_314b",
 }
 # archs the JAX reference registers that the port does not serve yet
 _NOT_PORTED = (
     "mamba2-130m", "yi-6b", "mistral-large-123b", "granite-20b",
-    "zamba2-1.2b", "paligemma-3b", "grok-1-314b", "dbrx-132b",
-    "musicgen-large",
+    "zamba2-1.2b", "paligemma-3b", "musicgen-large",
 )
 
 

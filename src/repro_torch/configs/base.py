@@ -322,6 +322,11 @@ class ApproxConfig:
     calibrate_every: int = 10    # steps between calibration batches
     inject_std_scale: float = 1.0
 
+    # which projections get the treatment: the router and the embedding
+    # stay exact (the paper keeps accuracy-critical small layers exact);
+    # every large matmul participates
+    skip_embedding: bool = True
+    skip_router: bool = True
     skip_lm_head: bool = False  # keep the LM head exact
 
     def __post_init__(self):
@@ -459,6 +464,11 @@ class ModelConfig:
     vocab_size: int
     d_head: int = 0                    # 0 => d_model // n_heads
 
+    # --- MoE ---
+    n_experts: int = 0                 # 0 => dense FFN
+    top_k: int = 0
+    capacity_factor: float = 1.25
+
     qkv_bias: bool = False             # qwen2.5 style
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
@@ -470,6 +480,33 @@ class ModelConfig:
     def __post_init__(self):
         if self.d_head == 0:
             object.__setattr__(self, "d_head", self.d_model // max(self.n_heads, 1))
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding, blocks, head), the
+        reference's arithmetic for the families the port runs: it counts
+        each block's norms twice (ROADMAP C)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        h, kv, dh = self.n_heads, self.n_kv_heads, self.d_head
+        per_attn = d * (h * dh) + 2 * d * (kv * dh) + (h * dh) * d
+        if self.qkv_bias:
+            per_attn += (h + 2 * kv) * dh
+        per_ffn = 3 * d * f  # SwiGLU
+        if self.n_experts:
+            per_ffn = self.n_experts * 3 * d * f + d * self.n_experts
+        norms = 2 * d
+        n = v * d  # embedding
+        if not self.tie_embeddings:
+            n += v * d  # lm head
+        n += self.n_layers * (per_attn + per_ffn + 2 * norms)
+        n += d  # final norm
+        return n
+
+    def active_param_count(self) -> int:
+        """Parameters a token touches (MoE: only its top-k experts)."""
+        if not self.n_experts:
+            return self.param_count()
+        inactive = self.n_layers * (self.n_experts - self.top_k) * 3 * self.d_model * self.d_ff
+        return self.param_count() - inactive
 
 
 # ---------------------------------------------------------------------------

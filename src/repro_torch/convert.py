@@ -1,8 +1,8 @@
 """Carry weights and training state across from the JAX reference.
 
-``params_from_jax(tree)`` takes the reference's DENSE parameter pytree
-after ``jax.tree.map(np.asarray, params)`` — layer leaves stacked as
-``[L, ...]`` — and returns the port's :class:`~repro_torch.models.
+``params_from_jax(tree)`` takes the reference's DENSE or MoE parameter
+pytree after ``jax.tree.map(np.asarray, params)`` — layer leaves stacked
+as ``[L, ...]``, a MoE block's expert stacks ``[L, E, ...]`` — and returns the port's :class:`~repro_torch.models.
 transformer.Transformer` holding the same values, so both packages
 compute the same function, on ``device`` (the card unless the caller
 asks for the CPU, as the port's other entry points).
@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.layout import flatten, named_paths
 from repro_torch.models import layers as L
+from repro_torch.models.moe import MoE
 from repro_torch.models.transformer import Block, Transformer
 from repro_torch.optim.adamw import adamw_init
 
@@ -120,15 +121,16 @@ def train_state_layout(state: Dict[str, Any]) -> Dict[str, Any]:
 
 def params_from_jax(tree: Dict[str, Any], device="cuda") -> Transformer:
     lay = tree["layers"]
-    attn, mlp = lay["attn"], lay["mlp"]
     layers = []
     for l in range(lay["ln1"].shape[0]):
-        a = {k: _tensor(v[l], device) for k, v in attn.items()}
-        m = {k: _tensor(v[l], device) for k, v in mlp.items()}
-        layers.append(Block(
-            _tensor(lay["ln1"][l], device), _tensor(lay["ln2"][l], device),
-            L.Attention(**a), L.MLP(**m),
-        ))
+        a = {k: _tensor(v[l], device) for k, v in lay["attn"].items()}
+        ln = (_tensor(lay["ln1"][l], device), _tensor(lay["ln2"][l], device))
+        if "moe" in lay:
+            m = {k: _tensor(v[l], device) for k, v in lay["moe"].items()}
+            layers.append(Block(*ln, L.Attention(**a), moe=MoE(**m)))
+        else:
+            m = {k: _tensor(v[l], device) for k, v in lay["mlp"].items()}
+            layers.append(Block(*ln, L.Attention(**a), L.MLP(**m)))
     head = tree.get("head", {}).get("lm_head")
     return Transformer(
         _tensor(tree["embed"]["tok"], device),
@@ -146,8 +148,8 @@ def named_from_jax(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
     for l in range(lay["ln1"].shape[0]):
         out[f"layers.{l}.ln1"] = lay["ln1"][l]
         out[f"layers.{l}.ln2"] = lay["ln2"][l]
-        for part in ("attn", "mlp"):
-            for k, v in lay[part].items():
+        for part in ("attn", "mlp", "moe"):
+            for k, v in lay.get(part, {}).items():
                 out[f"layers.{l}.{part}.{k}"] = v[l]
     head = tree.get("head", {}).get("lm_head")
     if head is not None:
@@ -212,7 +214,8 @@ def train_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
 
 def calib_from_jax(tree, device="cuda"):
     """A reference calibration tree (or one site's stats), as numpy, as
-    the port's: the same nested dicts of float32 tensors on ``device``."""
+    the port's: the same nested dicts of float32 tensors on ``device``
+    (a MoE tree's ``moe_experts`` stacked ``[L, E, ...]`` as it is)."""
     return _tree_from(tree, torch.device(device))
 
 

@@ -172,7 +172,11 @@ class ApproxCtx:
 
 
 def skipped_site(site: str, cfg: ApproxConfig) -> bool:
-    """True when ``dense()`` keeps this site exact whatever the backend map."""
+    """True when ``dense()`` keeps this site exact whatever the backend map
+    (the config's skip flags); the switch's index resolution and the
+    search's cost model go by the same rule."""
+    if cfg.skip_router and site.endswith("router"):
+        return True
     return cfg.skip_lm_head and site.endswith("lm_head")
 
 

@@ -22,23 +22,23 @@ def per_site_macs(cfg: ModelConfig, seq_len: int = 1, batch: int = 1
     costmodel`) prices.  ``bwd_macs`` is twice the forward count (dL/dx
     and dL/dW, each a matmul of the forward's size).  Only projection sites
     count: the attention einsums are not ``dense()`` sites.  The DENSE
-    family's sites, as the reference counts them; the MoE, SSM and hybrid
-    counts wait for those families (ROADMAP A5)."""
-    if cfg.family != Family.DENSE:
+    and MOE families' sites, as the reference counts them: the router at
+    one copy a layer, each expert site at ``top_k`` (the experts a token
+    runs through); the SSM and hybrid counts wait for those families
+    (ROADMAP A5)."""
+    if cfg.family not in (Family.DENSE, Family.MOE):
         raise NotImplementedError(
             f"per_site_macs for family {cfg.family.value!r} is not yet ported (ROADMAP A5)")
     d, f = cfg.d_model, cfg.d_ff
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     tokens = float(seq_len * batch)
-    sites = {
+    attn = {
         "attn_q": (d, h * dh),
         "attn_k": (d, kv * dh),
         "attn_v": (d, kv * dh),
         "attn_o": (h * dh, d),
-        "mlp_gate": (d, f),
-        "mlp_up": (d, f),
-        "mlp_down": (f, d),
     }
+    mlp = {"mlp_gate": (d, f), "mlp_up": (d, f), "mlp_down": (f, d)}
     out: Dict[str, Dict[str, float]] = {}
 
     def add(site: str, k: int, n: int, copies: float) -> None:
@@ -49,7 +49,15 @@ def per_site_macs(cfg: ModelConfig, seq_len: int = 1, batch: int = 1
         entry["macs"] += macs
         entry["bwd_macs"] += 2.0 * macs
 
-    for site, (k, n) in sites.items():
+    for site, (k, n) in attn.items():
         add(site, k, n, cfg.n_layers)
+    if cfg.n_experts:
+        add("moe_router", d, cfg.n_experts, cfg.n_layers)
+        add("moe_gate", d, f, cfg.n_layers * cfg.top_k)
+        add("moe_up", d, f, cfg.n_layers * cfg.top_k)
+        add("moe_down", f, d, cfg.n_layers * cfg.top_k)
+    else:
+        for site, (k, n) in mlp.items():
+            add(site, k, n, cfg.n_layers)
     add("lm_head", d, cfg.vocab_size, 1)
     return out

@@ -28,7 +28,8 @@ has each chip's probe losses.
 
 ``--switch`` merges every emulated request into one lane whatever its
 backend or site map (per-slot backend indices, ``Engine(switch=True)``);
-it refuses ``--static`` and ``--fleet``, as the reference does.  The
+it refuses ``--static`` and ``--fleet``, as the reference does, and MoE
+archs (``--arch dbrx-132b``, ``grok-1-314b``), whose engine refuses it.  The
 reference's ``--fabric`` waits for ROADMAP A7.
 
 ``--static`` runs the static-batch baseline instead (exact path only).
@@ -144,6 +145,9 @@ def main(argv=None) -> dict:
                  "per-chip fleet lanes; drop one")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.switch and cfg.n_experts:
+        ap.error(f"--switch does not support MoE models ({args.arch}): expert routing "
+                 "couples slot rows, so per-slot backend selection is ill-defined")
     model = build_model(cfg)
     params = model.init(args.seed, device=args.device)
     queue = build_queue(args, cfg.vocab_size, site_backends)

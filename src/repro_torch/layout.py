@@ -32,12 +32,12 @@ def named_paths(names) -> Dict[str, Any]:
     def stacked(suffix):
         return tuple(f"layers.{l}.{suffix}" for l in range(n_layers))
 
-    parts = {"attn": {}, "mlp": {}}
+    parts = {}  # attn, and mlp or (the MoE family) moe
     for k in names:
         if k.startswith("layers.0."):
             _, _, part, *leaf = k.split(".")
             if leaf:
-                parts[part][leaf[0]] = stacked(f"{part}.{leaf[0]}")
+                parts.setdefault(part, {})[leaf[0]] = stacked(f"{part}.{leaf[0]}")
     tree = {
         "embed": {"tok": "embed"},
         "final_norm": "final_norm",

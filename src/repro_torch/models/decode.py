@@ -1,7 +1,7 @@
 """Single-token decode (``serve_step``), bulk prefill and slot-cache ops,
-DENSE family (port of ``repro.models.decode``).
+DENSE and MOE families (port of ``repro.models.decode``).
 
-The cache is ``{'k': [L, B, S, KV, dh], 'v': ...}``.  Unlike the
+The cache is ``{'k': [L, B, S, KV, dh], 'v': ...}`` for both.  Unlike the
 reference, whose arrays are immutable, ``serve_step`` and the slot ops
 update the cache in place (one cache per serving lane, no copies per
 step) and return the same dict.  The batch dimension holds fixed *slots*
@@ -17,16 +17,17 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ApproxConfig, ModelConfig
 from repro_torch.core.approx_linear import dense
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models.transformer import (
     Transformer,
     apply_model,
-    check_dense,
+    check_family,
     layer_calibration,
 )
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> Dict[str, Any]:
-    check_dense(cfg)
+    check_family(cfg)
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
     dtype = getattr(torch, cfg.compute_dtype)
     return {
@@ -40,7 +41,11 @@ def _attn_decode_block(x, p, cfg, ctx, ck, cv, pos, flash=False):
         L.rmsnorm(x, p.ln1, cfg.norm_eps), p.attn, cfg, ctx, ck, cv, pos, flash=flash
     )
     x = x + h
-    return x + L.mlp(L.rmsnorm(x, p.ln2, cfg.norm_eps), p.mlp, ctx)
+    if cfg.n_experts:
+        f, _ = M.moe_ffn(L.rmsnorm(x, p.ln2, cfg.norm_eps), p.moe, cfg, ctx)
+    else:
+        f = L.mlp(L.rmsnorm(x, p.ln2, cfg.norm_eps), p.mlp, ctx)
+    return x + f
 
 
 def serve_step(
@@ -64,10 +69,13 @@ def serve_step(
     each layer and the head its sites: with ``ctx.correct`` the fitted mean
     error is subtracted, how the engine serves a recalibrated chip.  Every
     layer's ctx shares the step's memo, so each site still draws and builds
-    its SC tables, and recombines the chip's terms, once a step.
+    its SC tables, and recombines the chip's terms, once a step; so does
+    each expert site of a MoE model (its sub-contexts share the memo).
+    A MoE step routes every row, idle slots included: they take expert
+    capacity, as in the reference.
     ``flash`` takes the decode attention kernel.  Returns (logits
     [B, vocab], cache updated in place)."""
-    check_dense(cfg)
+    check_family(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
     threaded = ctx is not None and calib is not None
     x = params.embed[tokens].to(dtype)  # [B, 1, D]

@@ -1,8 +1,9 @@
-"""Decoder-LM assembly, DENSE family (port of ``repro.models.transformer``:
-``padded_vocab``, ``init_params``, ``init_calibration``,
-``_attn_block_apply``, ``_embed``, ``_lm_head`` and ``apply_model`` with
-``return_cache``, ``calib``, ``collect``, ``remat``, ``chip``, ``correct``,
-``calib_exact_ref``, ``blend``, ``backend_idx`` and ``bwd_gate``).
+"""Decoder-LM assembly, DENSE and MOE families (port of
+``repro.models.transformer``: ``padded_vocab``, ``init_params``,
+``init_calibration``, ``_attn_block_apply``, ``_embed``, ``_lm_head`` and
+``apply_model`` with ``return_cache``, ``calib``, ``collect``, ``remat``,
+``chip``, ``correct``, ``calib_exact_ref``, ``blend``, ``backend_idx`` and
+``bwd_gate``).
 
 The parameters are an ``nn.Module`` tree (:class:`Transformer`); a Python
 loop over ``layers`` takes the place of the reference's ``lax.scan``.
@@ -22,30 +23,36 @@ from repro_torch.core import calibration as calib_lib
 from repro_torch.core import checkpoint_policy
 from repro_torch.core.approx_linear import ApproxCtx, dense
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 # the value the reference folds into the forward's key for the LM head
 HEAD_FOLD = 2**20
 ATTN_SITES = ("attn_q", "attn_k", "attn_v", "attn_o")
 MLP_SITES = ("mlp_gate", "mlp_up", "mlp_down")
+MOE_SITES = M.MOE_SITES
 # every dense() call-site name across the reference's zoo (its MoE and SSM
 # sites too): the universe that --site-backend patterns are checked against
-ALL_SITES = ATTN_SITES + MLP_SITES + ("moe_gate", "moe_up", "moe_down", "ssm_in", "ssm_out",
-                                      "moe_router", "lm_head")
+ALL_SITES = ATTN_SITES + MLP_SITES + MOE_SITES + ("ssm_in", "ssm_out", "moe_router", "lm_head")
 
 
 class Block(nn.Module):
-    """One attention + SwiGLU block."""
+    """One attention block with a SwiGLU ``mlp``, or for the MoE family
+    an MoE FFN (``moe``) in its place."""
 
-    def __init__(self, ln1, ln2, attn: L.Attention, mlp: L.MLP):
+    def __init__(self, ln1, ln2, attn: L.Attention, mlp: Optional[L.MLP] = None,
+                 moe: Optional[M.MoE] = None):
         super().__init__()
         self.ln1 = L.frozen(ln1)
         self.ln2 = L.frozen(ln2)
         self.attn = attn
-        self.mlp = mlp
+        if moe is not None:
+            self.moe = moe
+        else:
+            self.mlp = mlp
 
 
 class Transformer(nn.Module):
-    """Parameters of a DENSE decoder LM, in the reference's layouts:
+    """Parameters of a DENSE or MoE decoder LM, in the reference's layouts:
     ``embed`` [V, D], projections [in, out], ``lm_head`` [D, V] (absent
     for tied embeddings)."""
 
@@ -61,11 +68,15 @@ class Transformer(nn.Module):
         return self.embed.device
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != Family.DENSE:
+PORTED_FAMILIES = (Family.DENSE, Family.MOE)
+
+
+def check_family(cfg: ModelConfig) -> None:
+    """Raise for a family the port does not run yet."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family.value!r} is not yet ported to repro_torch "
-            "(DENSE only; ROADMAP A5)"
+            "(DENSE and MOE only; ROADMAP A5)"
         )
 
 
@@ -81,8 +92,10 @@ def init_params(cfg: ModelConfig, seed: int, device) -> Transformer:
     """Random weights from ``seed`` (normal, scaled by fan-in; norms one,
     biases zero) in ``cfg.param_dtype`` on ``device``: drawn from a CPU
     generator, tensor by tensor, and moved there, so one seed gives the
-    same weights on every device."""
-    check_dense(cfg)
+    same weights on every device.  A MoE block's expert stacks are drawn
+    in parallel, each expert's tensors from a generator of their own
+    (:func:`repro_torch.models.moe.init_moe`)."""
+    check_family(cfg)
     dtype = getattr(torch, cfg.param_dtype)
     device = torch.device(device)
     gen = torch.Generator()
@@ -95,11 +108,14 @@ def init_params(cfg: ModelConfig, seed: int, device) -> Transformer:
     embed = normal((V, D), D ** -0.5)
     lm_head = None if cfg.tie_embeddings else normal((D, V), D ** -0.5)
     ones = lambda: torch.ones((D,), dtype=dtype, device=device)
-    layers = [
-        Block(ones(), ones(), L.init_attention(gen, cfg, dtype, device),
-              L.init_mlp(gen, cfg, dtype, device))
-        for _ in range(cfg.n_layers)
-    ]
+    layers = []
+    for l in range(cfg.n_layers):
+        attn = L.init_attention(gen, cfg, dtype, device)
+        if cfg.n_experts:
+            layers.append(Block(ones(), ones(), attn,
+                                moe=M.init_moe(gen, cfg, dtype, device, seed, l)))
+        else:
+            layers.append(Block(ones(), ones(), attn, L.init_mlp(gen, cfg, dtype, device)))
     return Transformer(embed, ones(), layers, lm_head)
 
 
@@ -108,29 +124,35 @@ def init_calibration(cfg: ModelConfig, approx: ApproxConfig, device="cpu") -> Di
     maps each block site to a site whose leaves are stacked over the
     layers (``mean`` and ``var`` [L, deg+1], ``scale`` [L]), ``"head"``
     holds ``lm_head``.  Each site takes the degree of the backend it
-    resolves to."""
-    check_dense(cfg)
+    resolves to.  A MoE block has the attention sites and
+    ``"moe_experts"``, the expert sites stacked ``[L, E, ...]``."""
+    check_family(cfg)
     n = cfg.n_layers
-    layers = {}
-    for site in ATTN_SITES + MLP_SITES:
-        one = calib_lib.init_site_for(approx, site, device)
-        layers[site] = {k: v.expand((n,) + v.shape).clone() for k, v in one.items()}
+
+    def stacked(sites, lead):
+        out = {}
+        for site in sites:
+            one = calib_lib.init_site_for(approx, site, device)
+            out[site] = {k: v.expand(lead + v.shape).clone() for k, v in one.items()}
+        return out
+
+    layers = stacked(ATTN_SITES if cfg.n_experts else ATTN_SITES + MLP_SITES, (n,))
+    if cfg.n_experts:
+        layers["moe_experts"] = stacked(MOE_SITES, (n, cfg.n_experts))
     head = {"lm_head": calib_lib.init_site_for(approx, "lm_head", device)}
     return {"layers": layers, "head": head}
 
 
 def layer_calibration(calib: Dict[str, Any], l: int) -> Dict[str, Any]:
-    """Layer ``l``'s sites of a calibration tree."""
-    return {site: {k: v[l] for k, v in st.items()} for site, st in calib["layers"].items()}
+    """Layer ``l``'s sites of a calibration tree (the expert stack's
+    ``[E, ...]`` slice included)."""
+    return M.index_tree(calib["layers"], l)
 
 
 def _stack_layers(per_layer) -> Dict[str, Any]:
     """The layers' collected sites, stacked as :func:`init_calibration`
     lays them out."""
-    return {
-        site: {k: torch.stack([c[site][k] for c in per_layer]) for k in per_layer[0][site]}
-        for site in per_layer[0]
-    }
+    return M.stack_trees(per_layer)
 
 
 @dataclasses.dataclass
@@ -138,6 +160,7 @@ class ApplyOutput:
     logits: torch.Tensor
     cache: Optional[Dict[str, Any]] = None  # prefill KV cache
     collected: Optional[Dict[str, Any]] = None  # calibration pass: fitted stats
+    aux_loss: Optional[torch.Tensor] = None  # float32, summed over layers (0 for DENSE)
 
 
 def _attn_block_apply(x, p: Block, cfg, ctx, positions, chunk_q):
@@ -145,8 +168,12 @@ def _attn_block_apply(x, p: Block, cfg, ctx, positions, chunk_q):
         L.rmsnorm(x, p.ln1, cfg.norm_eps), p.attn, cfg, ctx, positions, chunk_q=chunk_q
     )
     x = x + h
-    x = x + L.mlp(L.rmsnorm(x, p.ln2, cfg.norm_eps), p.mlp, ctx)
-    return x, kv
+    if cfg.n_experts:
+        f, aux = M.moe_ffn(L.rmsnorm(x, p.ln2, cfg.norm_eps), p.moe, cfg, ctx)
+    else:
+        f = L.mlp(L.rmsnorm(x, p.ln2, cfg.norm_eps), p.mlp, ctx)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + f, aux, kv
 
 
 def _embed(params: Transformer, cfg: ModelConfig, batch, dtype):
@@ -183,8 +210,10 @@ def apply_model(
 ) -> ApplyOutput:
     """Full-sequence forward.  batch: {'tokens': [B, T] int}.
 
-    Right-padded rows need no masking in a DENSE model: decode never
-    looks past a slot's position.  With ``return_cache`` the output
+    Right-padded rows need no masking for attention: decode never looks
+    past a slot's position.  In a MoE model they take expert capacity, as
+    in the reference.  The output's ``aux_loss`` is the float32 sum of the
+    layers' load-balance losses (0 for DENSE).  With ``return_cache`` the output
     carries the KV cache laid out as
     :func:`repro_torch.models.decode.init_cache` with ``max_seq = T``.
 
@@ -220,7 +249,7 @@ def apply_model(
     gated open runs its gradient matmuls on the int8 grid (the approximate
     backward); the forward is the same whatever the mask.
     """
-    check_dense(cfg)
+    check_family(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
     x = _embed(params, cfg, batch, dtype)
     B, T, _ = x.shape
@@ -241,11 +270,13 @@ def apply_model(
                     bwd_gate=bwd_gate)
     block = checkpoint_policy.wrap_block(_attn_block_apply, "none" if return_cache else remat)
     ks, vs, coll = [], [], []
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for l, p in enumerate(params.layers):
         lctx = ctx.for_layer(l, None if calib is None else layer_calibration(calib, l))
         if b_layers is not None:
             lctx.site_idx = b_layers[l]
-        x, (k, v) = block(x, p, cfg, lctx, positions, chunk_q)
+        x, aux, (k, v) = block(x, p, cfg, lctx, positions, chunk_q)
+        aux_total = aux_total + aux
         coll.append(lctx.collected)
         if return_cache:
             ks.append(k)
@@ -256,4 +287,4 @@ def apply_model(
     logits = _lm_head(x, params, cfg, hctx)
     cache = {"k": torch.stack(ks), "v": torch.stack(vs)} if return_cache else None
     collected = {"layers": _stack_layers(coll), "head": hctx.collected} if collect else None
-    return ApplyOutput(logits=logits, cache=cache, collected=collected)
+    return ApplyOutput(logits=logits, cache=cache, collected=collected, aux_loss=aux_total)

@@ -310,6 +310,11 @@ class Engine:
                 "Engine(switch=True) is incompatible with a fleet: merged lanes no longer "
                 "map 1:1 onto chips (per-chip recalibration needs one config per lane)"
             )
+        if self.switch and model.cfg.n_experts:
+            raise ValueError(
+                "Engine(switch=True) does not support MoE models: expert routing couples "
+                "slot rows, so per-slot backend selection is ill-defined"
+            )
         if probe is None and fleet is not None:
             rnd = np.random.default_rng(seed + 101)
             shape = (2, min(32, self.max_seq))
@@ -536,7 +541,9 @@ class Engine:
         }
         lane.slots[slot] = None
         # evict: a freed slot decodes as a canonical idle row (zero cache,
-        # token 0, position 0), never a finished request's KV
+        # token 0, position 0), never a finished request's KV: a batch-coupled
+        # computation (MoE expert capacity, the per-tensor scales of the SC
+        # and analog emulators) sees the same idle row every time
         D.slot_reset(self.cfg, lane.cache, slot)
         lane.tokens[slot, 0] = 0
         lane.pos[slot] = 0

@@ -114,6 +114,10 @@ class Trainer:
         variation: Optional[VariationModel] = None,
         fleet_seed: Optional[int] = None,
     ):
+        if model.cfg.n_experts:
+            raise NotImplementedError(
+                "the Trainer and its checkpoints on a MoE model are not yet ported "
+                "(ROADMAP A5); train a MoE model with training.steps.make_train_step")
         self.model = model
         self.approx = approx
         self.tcfg = tcfg

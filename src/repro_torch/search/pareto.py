@@ -41,6 +41,7 @@ from repro_torch.models.model import Model
 from repro_torch.search import costmodel
 from repro_torch.search.sensitivity import (
     SensitivityProfile,
+    check_searchable,
     eval_loss,
     fleet_eval_losses,
     profile_sensitivity,
@@ -295,6 +296,7 @@ def search(
     (:func:`repro_torch.search.costmodel.load_measured_energy`) prices MACs
     with measured per-backend numbers instead of the analytic models.
     """
+    check_searchable(model)
     fns = fns if fns is not None else CompiledFnCache()
     cfg = model.cfg
     B, T = batch["tokens"].shape

@@ -53,7 +53,9 @@ def init_train_state(model: Model, seed: int, approx: ApproxConfig,
     """A fresh train state: ``model.init(seed)`` on ``device`` (or the
     given ``params``, which are trained in place from here on), every
     weight made trainable, AdamW's state (``tcfg.optim_compress``), zero
-    calibration stats."""
+    calibration stats.  A MoE model takes ``optim_compress="none"`` only
+    (ROADMAP A5)."""
+    _check_moe_optim(model, tcfg)
     device = resolve_device(device)
     if params is None:
         params = model.init(seed, device)
@@ -77,11 +79,27 @@ def _batch(batch, device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _loss(params, batch, model: Model, approx, calib, rng, tcfg: TrainConfig, chip=None,
-          backend_idx=None, bwd_gate=None):
+def _loss_parts(params, batch, model: Model, approx, calib, rng, tcfg: TrainConfig,
+                chip=None, backend_idx=None, bwd_gate=None):
+    """(the LM loss plus 0.01 times the load-balance loss, the LM loss,
+    the load-balance loss), as the reference's ``_loss_fn``."""
     out = model.apply(params, batch, approx=approx, calib=calib, rng=rng, remat=tcfg.remat,
                       chip=chip, backend_idx=backend_idx, bwd_gate=bwd_gate)
-    return lm_loss(out.logits, batch["labels"])
+    loss = lm_loss(out.logits, batch["labels"])
+    return loss + 0.01 * out.aux_loss, loss, out.aux_loss
+
+
+def _loss(*args, **kw):
+    """The loss a train step differentiates (:func:`_loss_parts`' first)."""
+    return _loss_parts(*args, **kw)[0]
+
+
+def _check_moe_optim(model: Model, tcfg: Optional[TrainConfig]) -> None:
+    if model.cfg.n_experts and tcfg is not None and tcfg.optim_compress != "none":
+        raise NotImplementedError(
+            f"optim_compress={tcfg.optim_compress!r} on a MoE model is not yet ported "
+            "(ROADMAP A5: SM3's factors and the rounding over [L, E, ...] expert stacks); "
+            "use optim_compress='none'")
 
 
 def _switch_arg(switch_aware: bool, backend_idx):
@@ -110,7 +128,15 @@ def make_train_step(model: Model, approx: ApproxConfig, tcfg: TrainConfig,
     With ``tcfg.microbatches`` > 1 the batch splits into that many
     microbatches along its rows, each with ``rng`` + ``(i,)``; their
     gradients sum in float32 and divide by the count, as the reference's
-    scan does."""
+    scan does.
+
+    The loss differentiated is the LM loss plus 0.01 times the forward's
+    load-balance loss (0 for DENSE); ``metrics["loss"]`` is the LM loss,
+    ``metrics["aux_loss"]`` the load-balance loss and
+    ``metrics["total_loss"]`` their sum, each averaged over microbatches,
+    as the reference reports them.  A MoE model trains with
+    ``optim_compress="none"`` only (ROADMAP A5)."""
+    _check_moe_optim(model, tcfg)
     if mode is not None:
         approx = dataclasses.replace(approx, mode=mode)
 
@@ -125,31 +151,32 @@ def make_train_step(model: Model, approx: ApproxConfig, tcfg: TrainConfig,
         rng = tuple(rng)
 
         def grad_one(mb, r):
-            loss = _loss(params, mb, model, approx, calib, r, tcfg, chip, backend_idx, bwd_gate)
-            gs = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+            total, loss, aux = _loss_parts(params, mb, model, approx, calib, r, tcfg, chip,
+                                           backend_idx, bwd_gate)
+            gs = torch.autograd.grad(total, list(named.values()), allow_unused=True)
             gs = [torch.zeros_like(t) if g is None else g for g, t in zip(gs, named.values())]
-            return dict(zip(named, gs)), loss.detach()
+            return dict(zip(named, gs)), total.detach(), loss.detach(), aux.detach()
 
         n_micro = tcfg.microbatches
         if n_micro <= 1:
-            grads, total = grad_one(batch, rng)
+            grads, total, loss, aux = grad_one(batch, rng)
         else:
-            grads, total = None, torch.zeros((), device=params.device)
+            grads = None
+            total, loss, aux = (torch.zeros((), device=params.device) for _ in range(3))
             for i in range(n_micro):
-                g, t = grad_one(_split_micro(batch, n_micro, i), rng + (i,))
+                g, t, l_, a = grad_one(_split_micro(batch, n_micro, i), rng + (i,))
                 if grads is None:
                     grads = {n: torch.zeros(v.shape, dtype=torch.float32, device=v.device)
                              for n, v in g.items()}
                 for n, v in g.items():
                     grads[n] = grads[n] + v.to(torch.float32)
-                total = total + t
+                total, loss, aux = total + t, loss + l_, aux + a
                 del g
             grads = {n: v / n_micro for n, v in grads.items()}
-            total = total / n_micro
+            total, loss, aux = total / n_micro, loss / n_micro, aux / n_micro
         opt_metrics = adamw_update(grads, state["opt"], named, tcfg)
         state["step"] += 1
-        metrics = {"loss": total, "aux_loss": torch.zeros_like(total), **opt_metrics,
-                   "total_loss": total}
+        metrics = {"loss": loss, "aux_loss": aux, **opt_metrics, "total_loss": total}
         return state, metrics
 
     return step

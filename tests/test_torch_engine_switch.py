@@ -31,7 +31,6 @@ from repro.runtime.engine import Request as JRequest
 from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.configs.base import ApproxConfig
 from repro_torch.convert import params_from_jax
-from repro_torch.core import switch as tsw
 from repro_torch.hw import Fleet
 from repro_torch.models import build_model as t_build
 from repro_torch.runtime.engine import Engine, Request
@@ -172,11 +171,8 @@ def test_demote_sites_matches_reference(setup):
         res = eng.run([R(rid=3, prompt=prompt, max_new_tokens=4, backend="log_mult")])
         assert eng.metrics()["site_mask"] == ["*"]
         out[name] = (before, res)
-    # the same rows but at moe_router, which the reference's skip_router
-    # folds to exact (the port runs no MoE model, ROADMAP A5)
-    router = tsw.site_pos("moe_router")
-    np.testing.assert_array_equal(np.delete(out["torch"][0], router, axis=-1),
-                                  np.delete(out["jax"][0], router, axis=-1))
+    # the same rows, moe_router's included (skip_router folds it to exact)
+    np.testing.assert_array_equal(out["torch"][0], out["jax"][0])
     for rid in (2, 3):
         t, j = out["torch"][1][rid], out["jax"][1][rid]
         assert t["tokens"] == j["tokens"], rid

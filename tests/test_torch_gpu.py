@@ -1461,3 +1461,115 @@ def test_gated_backward_waits_for_no_host(cuda, backend):
     dx1, dw1 = step(np.ones(n, np.int32))
     assert torch.isfinite(dx1).all() and torch.isfinite(dw1).all()
     assert not torch.equal(dw0, dw1)
+
+
+# ---------------------------------------------------------------------------
+# The MoE family
+# ---------------------------------------------------------------------------
+
+
+def _sync_waits(fn):
+    """How many times one call of ``fn`` makes the host wait for the card
+    (torch's sync debug mode; its once-a-process notice is no wait)."""
+    import warnings
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return len([c for c in caught if "synchronizing" in str(c.message)
+                and "prototype" not in str(c.message)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["approx_mult", "log_mult", "sc", "analog"])
+def test_moe_serve_step_on_the_card_is_its_cpu_plain_version(cuda, backend):
+    """dbrx-132b's smoke config (8 experts top 4), one fused decode step of
+    3 slots on the card and on the CPU from one ``init(0)``: every emulated
+    projection the card ran (the experts' through K1, K4 or K6 on the
+    composed path, attention's and the head's fused) bitwise its plain
+    version on the CPU from the same operands and key path; the logits of
+    approx_mult and log_mult within 1e-3 (cuBLAS and the CPU sum the exact
+    matmuls in other orders), every logit finite."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ApproxConfig, Backend, TrainMode
+    from repro_torch.core import registry
+    from repro_torch.core.approx_linear import ApproxCtx
+    from repro_torch.models import build_model
+
+    cfg = get_smoke_config("dbrx-132b")
+    model = build_model(cfg)
+    approx = ApproxConfig(backend=Backend(backend), mode=TrainMode.MODEL)
+    seen, specs = [], {n: registry.get(n) for n in ("approx_mult", "log_mult", "sc", "analog")}
+
+    def record(name, spec):
+        def emulate(x, w, p, rng):
+            y = spec.emulate(x, w, p, rng)
+            seen.append((name, False, x, w, p, rng, None, y))
+            return y
+
+        def fused_emulate(x, w, p, rng, epi):
+            y = spec.fused_emulate(x, w, p, rng, epi)
+            seen.append((name, True, x, w, p, rng, epi, y))
+            return y
+
+        return dataclasses.replace(spec, emulate=emulate, fused_emulate=fused_emulate)
+
+    out = {}
+    for device in ("cpu", cuda):
+        params = model.init(0, device=device)
+        cache = model.init_cache(3, 16, device=device)
+        tokens = torch.tensor([[3], [9], [27]], device=device)
+        pos = torch.tensor([0, 4, 7], dtype=torch.int32, device=device)
+        if device != "cpu":
+            for n, spec in specs.items():
+                registry.register(record(n, spec), override=True)
+        try:
+            out[str(device)] = model.serve_step(params, cache, tokens, pos,
+                                                ctx=ApproxCtx(cfg=approx, fused=True, rng=(2, 1)),
+                                                flash=True)[0]
+        finally:
+            for spec in specs.values():
+                registry.register(spec, override=True)
+    got, want = out[str(cuda)].cpu(), out["cpu"]
+    assert torch.isfinite(got).all()
+    if backend in ("approx_mult", "log_mult"):
+        assert torch.allclose(got, want, atol=1e-3, rtol=1e-3)
+    composed = [r for r in seen if not r[1]]
+    assert len(composed) == 3 * cfg.n_experts * cfg.n_layers
+    assert len(seen) - len(composed) == 4 * cfg.n_layers + 1
+    for name, fused, x, w, p, rng, epi, y in seen:
+        spec = specs[name]
+        xc, wc = x.cpu(), w.cpu()
+        ref_y = spec.fused_emulate(xc, wc, p, rng, epi) if fused else spec.emulate(xc, wc, p, rng)
+        assert torch.equal(y.cpu(), ref_y), (name, fused, tuple(x.shape), tuple(w.shape))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("groups", ["0", "2"])
+def test_moe_ffn_waits_for_no_host(cuda, groups, monkeypatch):
+    """``moe_ffn`` on the exact lane (routing, capacity slots, dispatch,
+    the experts and the combine) makes the host wait for the card 0 times,
+    with global and with grouped dispatch; its output is finite and has
+    the input's shape."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as M
+
+    monkeypatch.setenv("REPRO_MOE_GROUPS", groups)
+    cfg = dataclasses.replace(get_smoke_config("dbrx-132b"), param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    params = build_model(cfg).init(0, device=cuda)
+    x = torch.randn((4, 8, cfg.d_model), device=cuda).to(torch.bfloat16)
+    assert _sync_waits(lambda: M.moe_ffn(x, params.layers[0].moe, cfg, None)) == 0
+    y, aux = M.moe_ffn(x, params.layers[0].moe, cfg, None)
+    assert y.shape == x.shape and torch.isfinite(y).all() and torch.isfinite(aux)
