@@ -1,8 +1,9 @@
 """Architecture registry: ``get_config("qwen2.5-3b")``.
 
-The qwen2.5-3b entry, the MoE family's dbrx-132b and grok-1-314b, and the
-paper's own models (``paper-tinyconv``, ``paper-resnet-tiny``) are ported;
-the reference's other archs raise.
+The qwen2.5-3b entry, the MoE family's dbrx-132b and grok-1-314b, the SSM
+family's mamba2-130m, the hybrid family's zamba2-1.2b, and the paper's own
+models (``paper-tinyconv``, ``paper-resnet-tiny``) are ported; the
+reference's other archs raise.
 """
 from __future__ import annotations
 
@@ -24,11 +25,12 @@ _ARCH_MODULES: Dict[str, str] = {
     "paper-resnet-tiny": "repro_torch.configs.paper_tiny",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "grok-1-314b": "repro_torch.configs.grok1_314b",
+    "mamba2-130m": "repro_torch.configs.mamba2_130m",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
 }
 # archs the JAX reference registers that the port does not serve yet
 _NOT_PORTED = (
-    "mamba2-130m", "yi-6b", "mistral-large-123b", "granite-20b",
-    "zamba2-1.2b", "paligemma-3b", "musicgen-large",
+    "yi-6b", "mistral-large-123b", "granite-20b", "paligemma-3b", "musicgen-large",
 )
 
 

@@ -469,6 +469,16 @@ class ModelConfig:
     top_k: int = 0
     capacity_factor: float = 1.25
 
+    # --- SSM (Mamba-2 / SSD) ---
+    ssm_state: int = 0                 # d_state; 0 => no ssm blocks
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 256               # SSD chunk length
+    ssm_conv_width: int = 4
+
+    # --- hybrid (zamba2-style): shared attn block every k ssm layers ---
+    shared_attn_every: int = 0         # 0 => not hybrid
+
     qkv_bias: bool = False             # qwen2.5 style
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
@@ -481,10 +491,30 @@ class ModelConfig:
         if self.d_head == 0:
             object.__setattr__(self, "d_head", self.d_model // max(self.n_heads, 1))
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == Family.SSM
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic archs (SSM, hybrid): the reference runs its 500k
+        decode shape on them."""
+        return self.family in (Family.SSM, Family.HYBRID)
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_n_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
     def param_count(self) -> int:
         """Analytic parameter count (embedding, blocks, head), the
-        reference's arithmetic for the families the port runs: it counts
-        each block's norms twice (ROADMAP C)."""
+        reference's arithmetic as it stands: it counts each attention
+        block's norms twice (ROADMAP C), and an SSM block as ``3 d d_in +
+        d_in d + d_in W`` (the in projection's x, z and dt pieces, roughly;
+        it feeds rooflines only)."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         h, kv, dh = self.n_heads, self.n_kv_heads, self.d_head
         per_attn = d * (h * dh) + 2 * d * (kv * dh) + (h * dh) * d
@@ -493,11 +523,19 @@ class ModelConfig:
         per_ffn = 3 * d * f  # SwiGLU
         if self.n_experts:
             per_ffn = self.n_experts * 3 * d * f + d * self.n_experts
+        di = self.ssm_d_inner
+        per_ssm = d * di * 2 + d * di + di * d + di * self.ssm_conv_width
         norms = 2 * d
         n = v * d  # embedding
         if not self.tie_embeddings:
             n += v * d  # lm head
-        n += self.n_layers * (per_attn + per_ffn + 2 * norms)
+        if self.family == Family.SSM:
+            n += self.n_layers * (per_ssm + norms)
+        elif self.family == Family.HYBRID:
+            # one shared attention+MLP block
+            n += self.n_layers * (per_ssm + norms) + per_attn + per_ffn + 2 * norms
+        else:
+            n += self.n_layers * (per_attn + per_ffn + 2 * norms)
         n += d  # final norm
         return n
 

@@ -1,8 +1,10 @@
 """Carry weights and training state across from the JAX reference.
 
-``params_from_jax(tree)`` takes the reference's DENSE or MoE parameter
-pytree after ``jax.tree.map(np.asarray, params)`` — layer leaves stacked
-as ``[L, ...]``, a MoE block's expert stacks ``[L, E, ...]`` — and returns the port's :class:`~repro_torch.models.
+``params_from_jax(tree)`` takes the reference's parameter pytree after
+``jax.tree.map(np.asarray, params)`` — layer leaves stacked as ``[L,
+...]``, a MoE block's expert stacks ``[L, E, ...]``, a HYBRID model's
+mamba layers ``[G, k, ...]`` beside its ``shared`` block and its ``tail``
+``[t, ...]`` — and returns the port's :class:`~repro_torch.models.
 transformer.Transformer` holding the same values, so both packages
 compute the same function, on ``device`` (the card unless the caller
 asks for the CPU, as the port's other entry points).
@@ -25,10 +27,12 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.layout import flatten, named_paths
 from repro_torch.models import layers as L
 from repro_torch.models.moe import MoE
+from repro_torch.models.ssm import SSM, SSMBlock
 from repro_torch.models.transformer import Block, Transformer
 from repro_torch.optim.adamw import adamw_init
 
@@ -54,7 +58,8 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 class Stacked:
     """One tensor per layer that the reference's layout stacks into one
-    ``[L, ...]`` leaf."""
+    ``[L, ...]`` leaf (for a HYBRID model's ``[G, k, ...]`` leaves, one
+    :class:`Stacked` per group)."""
 
     def __init__(self, tensors):
         self.tensors = list(tensors)
@@ -66,14 +71,14 @@ class Stacked:
         """The stacked leaf in host memory: each layer copied into its slice."""
         out = torch.empty(self.shape, dtype=self.dtype)
         for l, t in enumerate(self.tensors):
-            out[l].copy_(t.detach())
+            out[l].copy_(t.host() if isinstance(t, Stacked) else t.detach())
         return out
 
     @torch.no_grad()
     def load_(self, stacked: torch.Tensor) -> None:
         """Copy slice ``l`` of ``stacked`` into layer ``l``'s tensor, in place."""
         for l, t in enumerate(self.tensors):
-            t.copy_(stacked[l])
+            t.load_(stacked[l]) if isinstance(t, Stacked) else t.copy_(stacked[l])
 
 
 def _map_names(tree, fn):
@@ -92,7 +97,7 @@ def named_layout(named: Dict[str, Any]) -> Dict[str, Any]:
     def leaf(ns):
         if isinstance(ns, str):
             return named[ns]
-        entries = [named[n] for n in ns]
+        entries = [leaf(n) for n in ns]
         if not isinstance(entries[0], dict):
             return Stacked(entries)
         out = {}
@@ -119,25 +124,60 @@ def train_state_layout(state: Dict[str, Any]) -> Dict[str, Any]:
     }
 
 
+def _attn_block(lay, idx, device) -> Block:
+    """The attention block at ``idx`` of the reference's stacked leaves
+    (``()`` for the hybrid's unstacked shared block)."""
+    a = {k: _tensor(v[idx], device) for k, v in lay["attn"].items()}
+    ln = (_tensor(lay["ln1"][idx], device), _tensor(lay["ln2"][idx], device))
+    if "moe" in lay:
+        return Block(*ln, L.Attention(**a), moe=MoE(**{k: _tensor(v[idx], device)
+                                                       for k, v in lay["moe"].items()}))
+    return Block(*ln, L.Attention(**a), L.MLP(**{k: _tensor(v[idx], device)
+                                                 for k, v in lay["mlp"].items()}))
+
+
+def _ssm_block(lay, idx, device) -> SSMBlock:
+    return SSMBlock(_tensor(lay["ln1"][idx], device),
+                    SSM(**{k: _tensor(v[idx], device) for k, v in lay["ssm"].items()}))
+
+
 def params_from_jax(tree: Dict[str, Any], device="cuda") -> Transformer:
     lay = tree["layers"]
-    layers = []
-    for l in range(lay["ln1"].shape[0]):
-        a = {k: _tensor(v[l], device) for k, v in lay["attn"].items()}
-        ln = (_tensor(lay["ln1"][l], device), _tensor(lay["ln2"][l], device))
-        if "moe" in lay:
-            m = {k: _tensor(v[l], device) for k, v in lay["moe"].items()}
-            layers.append(Block(*ln, L.Attention(**a), moe=MoE(**m)))
-        else:
-            m = {k: _tensor(v[l], device) for k, v in lay["mlp"].items()}
-            layers.append(Block(*ln, L.Attention(**a), L.MLP(**m)))
+    shared = tail = None
+    if "ssm" in lay and "shared" in tree:  # HYBRID: [G, k, ...] mamba layers
+        G, k = np.asarray(lay["ln1"]).shape[:2]
+        layers = [nn.ModuleList([_ssm_block(lay, (g, j), device) for j in range(k)])
+                  for g in range(G)]
+        shared = _attn_block(tree["shared"], (), device)
+        if "tail" in tree:
+            tail = [_ssm_block(tree["tail"], j, device)
+                    for j in range(np.asarray(tree["tail"]["ln1"]).shape[0])]
+    elif "ssm" in lay:
+        layers = [_ssm_block(lay, l, device) for l in range(lay["ln1"].shape[0])]
+    else:
+        layers = [_attn_block(lay, l, device) for l in range(lay["ln1"].shape[0])]
     head = tree.get("head", {}).get("lm_head")
     return Transformer(
         _tensor(tree["embed"]["tok"], device),
         _tensor(tree["final_norm"], device),
         layers,
         None if head is None else _tensor(head, device),
+        shared=shared,
+        tail=tail,
     )
+
+
+def _named_blocks(out, prefix, lay, lead):
+    """``{prefix.<i>[.<j>].name: slice}`` of the stacked leaves ``lay``
+    over their ``lead`` leading axes."""
+    for idx in np.ndindex(*lead):
+        at = ".".join([prefix] + [str(i) for i in idx]) if prefix else ""
+        for k, v in lay.items():
+            if isinstance(v, dict):
+                for n, a in v.items():
+                    out[f"{at}.{k}.{n}" if at else f"{k}.{n}"] = a[idx]
+            else:
+                out[f"{at}.{k}" if at else k] = v[idx]
 
 
 def named_from_jax(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
@@ -145,12 +185,12 @@ def named_from_jax(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
     AdamW slot) as ``{port parameter name: array}``, layer leaves sliced."""
     out = {"embed": tree["embed"]["tok"], "final_norm": tree["final_norm"]}
     lay = tree["layers"]
-    for l in range(lay["ln1"].shape[0]):
-        out[f"layers.{l}.ln1"] = lay["ln1"][l]
-        out[f"layers.{l}.ln2"] = lay["ln2"][l]
-        for part in ("attn", "mlp", "moe"):
-            for k, v in lay.get(part, {}).items():
-                out[f"layers.{l}.{part}.{k}"] = v[l]
+    hybrid = "shared" in tree
+    _named_blocks(out, "layers", lay, np.shape(lay["ln1"])[:2 if hybrid else 1])
+    if hybrid:
+        _named_blocks(out, "shared", tree["shared"], ())
+    if "tail" in tree:
+        _named_blocks(out, "tail", tree["tail"], np.shape(tree["tail"]["ln1"])[:1])
     head = tree.get("head", {}).get("lm_head")
     if head is not None:
         out["lm_head"] = head

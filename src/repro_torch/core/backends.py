@@ -45,7 +45,7 @@ from repro_torch.core.proxy import split_signed, tensor_scale
 from repro_torch.core.registry import BackendSpec, concat_planes, split_unipolar_contract
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import const
-from repro_torch.kernels.sc_matmul import stream_planes
+from repro_torch.kernels.sc_matmul import row_major, stream_planes
 
 
 def fake_quant_unipolar(x, bits: int):
@@ -77,9 +77,9 @@ def _emulate_sc(x, w, p: SCParams, rng):
     weight for both polarities, the planes formed in the kernel's loads."""
     K, N = w.shape
     draws = rng(2 * K, p.bits, x.device)
-    # a tied lm_head's weight is a transposed view (not a qwen2.5-3b path)
-    y = kops.sc_matmul_quantized(x.reshape(-1, K).contiguous(), w.contiguous(), p.gain, p.bits,
-                                 draws)
+    # a tied lm_head's weight is the view embed.T, which the kernel reads in
+    # place
+    y = kops.sc_matmul_quantized(x.reshape(-1, K).contiguous(), w, p.gain, p.bits, draws)
     return y.reshape(x.shape[:-1] + (N,))
 
 
@@ -89,7 +89,7 @@ def _array_planes(x, w, p: AnalogParams):
     sx = tensor_scale(x)
     sw = tensor_scale(w)
     xp, xn = split_signed(x / sx)
-    wp, wn = split_signed(w / sw)
+    wp, wn = split_signed(row_major(torch.div, w, sw))  # row-major for a tied head's embed.T
     xp = fake_quant_unipolar(xp, p.input_bits)
     xn = fake_quant_unipolar(xn, p.input_bits)
     wp = fake_quant_unipolar(wp, p.weight_bits)
@@ -122,8 +122,9 @@ def _emulate_analog(x, w, p: AnalogParams, rng):
 
 def _int_operand_emulate(x, w, matmul_quantized, epi: dict):
     x2 = x.reshape(-1, x.shape[-1])
-    # a tied lm_head's weight is a transposed view (not a qwen2.5-3b path)
-    y = matmul_quantized(x2.contiguous(), w.contiguous(), epi, x.dtype)
+    # a tied lm_head's weight is the view embed.T, which the kernels read in
+    # place
+    y = matmul_quantized(x2.contiguous(), w, epi, x.dtype)
     return y.reshape(x.shape[:-1] + (w.shape[-1],))
 
 

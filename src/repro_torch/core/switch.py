@@ -234,19 +234,18 @@ def model_indices(
     table: Optional[Sequence[str]] = None,
     mask_sites: Sequence[str] = (),
 ) -> Dict[str, np.ndarray]:
-    """Index arrays for a whole model: ``{"layers": [L, S], "head": [S]}``.
+    """Index arrays for a whole model, laid out as the calibration tree:
+    ``{"layers": [L, S], "head": [S]}``; a HYBRID model's ``"layers"`` are
+    ``[G, k, S]``, beside ``"shared": [G, S]`` (and ``"tail": [t, S]``).
 
     ``layer_maps`` (optional, length ``cfg.n_layers``) gives each layer
     its own ``site_backends`` tuple; ``None`` entries (or no
-    ``layer_maps``) inherit ``approx``'s map.  Pass the result as
-    ``apply_model(backend_idx=...)``.  ``mask_sites`` (fnmatch patterns)
-    demotes matching sites to exact in every entry, after the layer maps
-    resolve (:func:`mask_site_indices`).  The reference's hybrid layout
-    (``"shared"``, ``"tail"``) waits for that family (ROADMAP A5).
+    ``layer_maps``) inherit ``approx``'s map.  A HYBRID model's maps index
+    its mamba layers group-major, then the tail; its shared block takes
+    ``approx``'s map.  Pass the result as ``apply_model(backend_idx=...)``.
+    ``mask_sites`` (fnmatch patterns) demotes matching sites to exact in
+    every entry, after the layer maps resolve (:func:`mask_site_indices`).
     """
-    if cfg.family == Family.HYBRID:
-        raise NotImplementedError(
-            "model_indices for the hybrid family is not yet ported (ROADMAP A5)")
     base = site_indices(approx, table=table)
     n = cfg.n_layers
     if layer_maps is None:
@@ -265,10 +264,17 @@ def model_indices(
             )
             for m in layer_maps
         ]
-    out: Dict[str, np.ndarray] = {
-        "head": base,
-        "layers": np.stack(per_layer).astype(np.int32),  # [L, S]
-    }
+    stacked = np.stack(per_layer).astype(np.int32)  # [L, S]
+    out: Dict[str, np.ndarray] = {"head": base}
+    if cfg.family == Family.HYBRID:
+        k = cfg.shared_attn_every
+        G, tail = n // k, n % k
+        out["layers"] = stacked[: G * k].reshape(G, k, len(SITE_ORDER))
+        out["shared"] = np.tile(base, (G, 1))
+        if tail:
+            out["tail"] = stacked[G * k:]
+    else:
+        out["layers"] = stacked
     if mask_sites:
         out = {k: mask_site_indices(v, mask_sites) for k, v in out.items()}
     return out

@@ -51,10 +51,10 @@ SIGNATURES = {
         "vpu_scales_words": (_I,),
         # mul, in_bf16, out_bf16, x, w, hold, scales, aslots, bits, lev,
         # lev2, eps_in, gain, add, coeffs, P, eps, acc, out, M, N, K,
-        # drop_bits, stream
+        # drop_bits, w_nk (w given as [N, K]), stream
         "vpu_quantize_matmul_fused": (
             _I, _I, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F, _P, _P, _P, _I, _F,
-            _P, _P, _I, _I, _I, _I, _P,
+            _P, _P, _I, _I, _I, _I, _I, _P,
         ),
     },
     "flash_decode": {
@@ -73,9 +73,9 @@ SIGNATURES = {
         # xbits, wbits, acc, out, M, N, ports, bits, stream
         "sc_matmul_words": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
         # in_bf16, x, w, tab, hold, scales, acc_p, acc_n, out, M, N, K, bits,
-        # eps, gain, gain2, stream
+        # eps, gain, gain2, w_nk (w given as [N, K]), stream
         "sc_matmul_quantized": (
-            _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P,
+            _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _P,
         ),
         # in_bf16, out_bf16, x, wp, wn, tab, acc_p, acc_n, pre, gain, add,
         # coeffs, P, eps, out, M, N, K, bits, stream
@@ -122,6 +122,13 @@ LAUNCHES: Dict[str, int] = {
     # rows): the serving path's decode
     "elementwise_matmul_fused[approx_mult]": 0,
     "elementwise_matmul_fused[log_mult]": 0,
+    # K1's and K2's entries that read the weight as [N, K] row-major (a tied
+    # LM head reads the embedding in place): the serving path of a model
+    # with tied embeddings
+    "elementwise_matmul[approx_mult,quantized,nk]": 0,
+    "elementwise_matmul[log_mult,quantized,nk]": 0,
+    "elementwise_matmul_fused[approx_mult,nk]": 0,
+    "elementwise_matmul_fused[log_mult,nk]": 0,
     # K2 on integer-valued operands, the reference kernel's own interface:
     # a check entry, off the serving path
     "elementwise_matmul_fused[approx_mult,int]": 0,
@@ -133,6 +140,8 @@ LAUNCHES: Dict[str, int] = {
     # K4's function for both polarities on the operands themselves, the SC
     # value-domain code taken in: the serving path's prefill
     "sc_matmul_packed[quantized]": 0,
+    # its [N, K] entry (a tied LM head)
+    "sc_matmul_packed[quantized,nk]": 0,
     "sc_matmul_packed_fused": 0,
     # the generator draws of an SC key path (threefry), in front of the tables
     "sc_draws": 0,

@@ -677,7 +677,10 @@ __device__ __forceinline__ float unit(float v) {
 // thread taking its share: with VEC, 16-byte cp.async copies (zero-filled
 // past the range, past M and past N; needs N and K multiples of a copy and
 // of R); without, element loads.  The table rows always go by 16-byte
-// copies.
+// copies.  nk: 0 for weights [K, N] row-major; K for K4_QUANT's w given as
+// [N, K] row-major (a tied LM head reads the embedding in place), whose
+// element loads take consecutive rows of one column in consecutive
+// threads.
 template <int MODE, typename T, int BM, int NT, bool VEC>
 __device__ __forceinline__ void k4_load_stage(K4Stage<MODE, T, BM>& sg, const T* __restrict__ x,
                                               const T* __restrict__ wa, const T* __restrict__ wb,
@@ -685,7 +688,7 @@ __device__ __forceinline__ void k4_load_stage(K4Stage<MODE, T, BM>& sg, const T*
                                               const uint32_t* __restrict__ wbits,
                                               const uint32_t* __restrict__ tab_w, int s0, int r1,
                                               int m0, int n0, int M, int N, int K, int W, int w,
-                                              int tid) {
+                                              int tid, int nk) {
   using namespace k4;
   constexpr int PL = K4Stage<MODE, T, BM>::PL;
   const int rows = min(R, r1 - s0);
@@ -726,9 +729,10 @@ __device__ __forceinline__ void k4_load_stage(K4Stage<MODE, T, BM>& sg, const T*
       }
     } else {
       for (int i = tid; i < PL * R * BN; i += NT) {
-        const int pl = i / (R * BN), r = (i / BN) % R, c = i % BN;
-        sg.w[pl][r][c] =
-            r < rows && n0 + c < N ? (pl ? wb : wa)[(size_t)(s0 + r) * N + n0 + c] : T(0.0f);
+        const int pl = i / (R * BN), j = i % (R * BN);
+        const int r = nk ? j % R : j / BN, c = nk ? j / R : j % BN;
+        const size_t at = nk ? (size_t)(n0 + c) * nk + s0 + r : (size_t)(s0 + r) * N + n0 + c;
+        sg.w[pl][r][c] = r < rows && n0 + c < N ? (pl ? wb : wa)[at] : T(0.0f);
       }
       for (int i = tid; i < PL * BM * R; i += NT) {
         const int h = i / (BM * R), m = (i / R) % BM, r = i % R;
@@ -883,6 +887,7 @@ struct K4Args {
   int M, N, K, W;          // K: port pairs (K4_WORDS: ports)
   int spb;                 // stages of a split
   int split;               // more than one split: OR into acc with atomics
+  int nk;                  // K4_QUANT: K for w given as [N, K] row-major, else 0
 };
 
 // Block (x, y, z): columns [128 x, 128 x + 128), rows [BM y, BM y + BM),
@@ -916,7 +921,7 @@ __global__ void __launch_bounds__(32 * RW, 2) k4_contract(K4Args a) {
   const T* wb = static_cast<const T*>(a.wb);
   auto load = [&](int s) {
     k4_load_stage<MODE, T, BM, NT, VEC>(ring[s % S], x, wa, wb, a.xbits, a.wbits, tab_w,
-                                        r0 + s * R, r1, m0, n0, M, N, K, W, w, tid);
+                                        r0 + s * R, r1, m0, n0, M, N, K, W, w, tid, a.nk);
   };
 
   if constexpr (MODE != K4_WORDS)
@@ -1043,8 +1048,8 @@ void k4_rows(const K4Args& a, cudaStream_t st) {
 template <int MODE, typename T>
 void run_k4(const K4Args& a, cudaStream_t st) {
   constexpr int CE = 16 / sizeof(T);
-  const bool vec = a.N % CE == 0 && a.K % k4::R == 0 && aligned(a.x, 16) && aligned(a.wa, 16) &&
-                   (MODE == K4_QUANT || aligned(a.wb, 16));
+  const bool vec = !a.nk && a.N % CE == 0 && a.K % k4::R == 0 && aligned(a.x, 16) &&
+                   aligned(a.wa, 16) && (MODE == K4_QUANT || aligned(a.wb, 16));
   if (vec)
     k4_rows<MODE, T, true>(a, st);
   else
@@ -1223,7 +1228,7 @@ extern "C" int sc_matmul(int in_bf16, const void* x, const void* wa, const void*
                          int bits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int W = bits / 32;
-  const K4Args a{x, wa, wb, nullptr, nullptr, tab, nullptr, acc, nullptr, M, N, K, W, 0, 0};
+  const K4Args a{x, wa, wb, nullptr, nullptr, tab, nullptr, acc, nullptr, M, N, K, W, 0, 0, 0};
   if (in_bf16)
     run_k4<K4_PLANES, __nv_bfloat16>(a, st);
   else
@@ -1243,7 +1248,7 @@ extern "C" int sc_matmul_words(const uint32_t* xbits, const uint32_t* wbits, uin
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int W = bits / 32;
   const K4Args a{nullptr, nullptr, nullptr, xbits, wbits, nullptr, nullptr, acc, nullptr,
-                 M, N, P, W, 0, 0};
+                 M, N, P, W, 0, 0, 0};
   k4_rows<K4_WORDS, float, false>(a, st);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -1253,7 +1258,9 @@ extern "C" int sc_matmul_words(const uint32_t* xbits, const uint32_t* wbits, uin
 }
 
 // The SC prefill projection from the operands themselves, x [M, K] and w
-// [K, N] (float32 or bfloat16): the planes of the SC emulator (scales sx,
+// [K, N] (float32 or bfloat16; w_nk = 1: w given as its transpose [N, K]
+// row-major, read in place, as a tied LM head reads the embedding): the
+// planes of the SC emulator (scales sx,
 // sw floored at eps; q = rnd(gain / s); planes clamp(max(+-rnd(v q), 0), 0,
 // 1)), both polarities w_pos = [wp; wn] and w_neg = [wn; wp] against the
 // streams of the tables tab (sc_tables), then ((count_p / bits - count_n /
@@ -1265,11 +1272,12 @@ extern "C" int sc_matmul_words(const uint32_t* xbits, const uint32_t* wbits, uin
 extern "C" int sc_matmul_quantized(int in_bf16, const void* x, const void* w,
                                    const uint32_t* tab, unsigned* hold, float* scales,
                                    uint32_t* acc_p, uint32_t* acc_n, void* out, int M, int N,
-                                   int K, int bits, float eps, float gain, float gain2,
+                                   int K, int bits, float eps, float gain, float gain2, int w_nk,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int W = bits / 32;
-  const K4Args a{x, w, nullptr, nullptr, nullptr, tab, scales, acc_p, acc_n, M, N, K, W, 0, 0};
+  const K4Args a{x,     w,     nullptr, nullptr, nullptr, tab, scales, acc_p,
+                 acc_n, M,     N,       K,       W,       0,   0,      w_nk ? K : 0};
   if (in_bf16) {
     run_scales<__nv_bfloat16>(x, w, hold, scales, M, K, N, eps, gain, gain2, st);
     run_k4<K4_QUANT, __nv_bfloat16>(a, st);

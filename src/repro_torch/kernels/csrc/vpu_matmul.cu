@@ -286,6 +286,12 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
+
+// Where weight (k, n) lies: w [K, N] row-major (nk = 0), or w given as
+// [N, K] row-major (nk = K).
+__device__ __forceinline__ size_t w_index(int k, int n, int N, int nk) {
+  return nk ? (size_t)n * nk + k : (size_t)k * N + n;
+}
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // round(clamp(v / s, -1, 1) * lev) as an integer, each op rounded to T as
@@ -367,11 +373,14 @@ __device__ __forceinline__ void weight_ops(const T* row, const unsigned short* t
 // Rows [s0, s0 + R) of the block's range [.., r1) into a stage, every
 // thread of the block taking its share: with VEC, cp.async copies
 // (zero-filled past the range, past M and past N); without (N or K not a
-// multiple of the copy, or a pointer not aligned for it), element loads.
+// multiple of the copy, a pointer not aligned for it, or w given as [N, K]),
+// element loads.  nk: 0 for w [K, N] row-major; K for w given as [N, K]
+// row-major (a tied LM head reads the embedding in place), whose element
+// loads take consecutive rows of one column in consecutive threads.
 template <typename T, bool VEC>
 __device__ __forceinline__ void load_stage(Stage<T>& sg, const T* __restrict__ x,
                                            const T* __restrict__ w, int s0, int r1, int m0,
-                                           int nb, int M, int N, int K, int tid) {
+                                           int nb, int M, int N, int K, int tid, int nk) {
   using namespace k2;
   const int rows = min(R, r1 - s0);
   if constexpr (VEC) {
@@ -390,8 +399,8 @@ __device__ __forceinline__ void load_stage(Stage<T>& sg, const T* __restrict__ x
     }
   } else {
     for (int i = tid; i < R * TW; i += NT) {
-      const int rr = i / TW, n = nb + i % TW;
-      sg.w[rr][i % TW] = rr < rows && n < N ? w[(size_t)(s0 + rr) * N + n] : T(0.0f);
+      const int rr = nk ? i % R : i / TW, c = nk ? i / R : i % TW, n = nb + c;
+      sg.w[rr][c] = rr < rows && n < N ? w[w_index(s0 + rr, n, N, nk)] : T(0.0f);
     }
     for (int i = tid; i < BM * R; i += NT) {
       const int m = i / R, rr = i % R;
@@ -411,7 +420,7 @@ template <int MUL, bool QUANT, bool TABLE, typename T, bool VEC>
 __global__ void __launch_bounds__(k2::NT, k2::BLOCKS_PER_SM)
     decode_contract(const T* __restrict__ x, const T* __restrict__ w,
                     const float* __restrict__ scales, int* __restrict__ acc, int M, int N, int K,
-                    int spb, int drop_bits, float lev) {
+                    int spb, int drop_bits, float lev, int nk) {
   using namespace k2;
   static_assert(!TABLE || (QUANT && sizeof(T) == 2), "the level table is of bf16 weights");
   extern __shared__ __align__(16) unsigned char smem[];
@@ -431,7 +440,7 @@ __global__ void __launch_bounds__(k2::NT, k2::BLOCKS_PER_SM)
   }
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_st) load_stage<T, VEC>(ring[s], x, w, r0 + s * R, r1, m0, nb, M, N, K, tid);
+    if (s < n_st) load_stage<T, VEC>(ring[s], x, w, r0 + s * R, r1, m0, nb, M, N, K, tid, nk);
     cp_async_commit();
   }
   // the scales: sw for the weights, and sx of slot lane % 4 for the
@@ -455,7 +464,7 @@ __global__ void __launch_bounds__(k2::NT, k2::BLOCKS_PER_SM)
     __syncthreads();  // stage st has landed; every warp is done with stage st - 1
     const int nx = st + STAGES - 1;
     if (nx < n_st)
-      load_stage<T, VEC>(ring[nx % STAGES], x, w, r0 + nx * R, r1, m0, nb, M, N, K, tid);
+      load_stage<T, VEC>(ring[nx % STAGES], x, w, r0 + nx * R, r1, m0, nb, M, N, K, tid, nk);
     cp_async_commit();
 
     const Stage<T>& sg = ring[st % STAGES];
@@ -568,7 +577,7 @@ bool aligned(const void* p, uintptr_t bytes) {
 
 template <int MUL, bool QUANT, bool TABLE, typename T, bool VEC>
 void launch_decode(const T* x, const T* w, const float* scales, int* acc, int M, int N, int K,
-                   int drop_bits, float lev, cudaStream_t st) {
+                   int drop_bits, float lev, int nk, cudaStream_t st) {
   using namespace k2;
   const SplitPlan p = split_plan((N + TW - 1) / TW, (M + BM - 1) / BM, (K + R - 1) / R,
                                  BLOCKS_PER_SM, MAX_SPLITS);
@@ -584,40 +593,43 @@ void launch_decode(const T* x, const T* w, const float* scales, int* acc, int M,
   }();
   (void)attr;
   decode_contract<MUL, QUANT, TABLE, T, VEC><<<dim3(p.gx, p.gy, p.gz), NT, smem, st>>>(
-      x, w, scales, acc, M, N, K, p.spb, drop_bits, lev);
+      x, w, scales, acc, M, N, K, p.spb, drop_bits, lev, nk);
 }
 
 template <int MUL, bool QUANT, typename T>
 void run_decode(const void* x, const void* w, const float* scales, int* acc, int M, int N,
-                int K, int drop_bits, float lev, cudaStream_t st) {
+                int K, int drop_bits, float lev, int nk, cudaStream_t st) {
   // 16-byte copies of w rows and of x's R elements at a slot
-  const bool vec = N % (16 / sizeof(T)) == 0 && K % k2::R == 0 && aligned(w, 16) &&
+  const bool vec = !nk && N % (16 / sizeof(T)) == 0 && K % k2::R == 0 && aligned(w, 16) &&
                    aligned(x, 16);
   constexpr bool TABLE = QUANT && sizeof(T) == 2;
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   if (vec)
-    launch_decode<MUL, QUANT, TABLE, T, true>(xt, wt, scales, acc, M, N, K, drop_bits, lev, st);
+    launch_decode<MUL, QUANT, TABLE, T, true>(xt, wt, scales, acc, M, N, K, drop_bits, lev, 0,
+                                              st);
   else
-    launch_decode<MUL, QUANT, TABLE, T, false>(xt, wt, scales, acc, M, N, K, drop_bits, lev,
+    launch_decode<MUL, QUANT, TABLE, T, false>(xt, wt, scales, acc, M, N, K, drop_bits, lev, nk,
                                                st);
 }
 
 template <bool QUANT>
 void decode_dispatch(int mul, int in_bf16, const void* x, const void* w, const float* scales,
-                     int* acc, int M, int N, int K, int drop_bits, float lev, cudaStream_t st) {
+                     int* acc, int M, int N, int K, int drop_bits, float lev, int nk,
+                     cudaStream_t st) {
   if (mul == MUL_APPROX) {
     if (in_bf16)
       run_decode<MUL_APPROX, QUANT, __nv_bfloat16>(x, w, scales, acc, M, N, K, drop_bits, lev,
-                                                   st);
+                                                   nk, st);
     else
-      run_decode<MUL_APPROX, QUANT, float>(x, w, scales, acc, M, N, K, drop_bits, lev, st);
+      run_decode<MUL_APPROX, QUANT, float>(x, w, scales, acc, M, N, K, drop_bits, lev, nk, st);
   } else {
     if (in_bf16)
       run_decode<MUL_MITCHELL, QUANT, __nv_bfloat16>(x, w, scales, acc, M, N, K, drop_bits,
-                                                     lev, st);
+                                                     lev, nk, st);
     else
-      run_decode<MUL_MITCHELL, QUANT, float>(x, w, scales, acc, M, N, K, drop_bits, lev, st);
+      run_decode<MUL_MITCHELL, QUANT, float>(x, w, scales, acc, M, N, K, drop_bits, lev, nk,
+                                             st);
   }
 }
 
@@ -822,7 +834,7 @@ template <int MUL, bool QUANT, typename T>
 __global__ void __launch_bounds__(kc::NT, kc::BLOCKS_PER_SM)
     contract(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ scales,
              int* __restrict__ planes, int M, int N, int K, int k_split, int drop_bits,
-             float lev) {
+             float lev, int nk) {
   using namespace kc;
   constexpr bool LOG = MUL == MUL_MITCHELL;
   constexpr bool TABLE = QUANT && sizeof(T) == 2;
@@ -867,6 +879,11 @@ __global__ void __launch_bounds__(kc::NT, kc::BLOCKS_PER_SM)
   static_assert(XPT * NT == BM * BK && WPT * NT == BK * BN, "whole tiles a thread");
   T xr[XPT], wr[WPT];
   float sxr[XPT];
+  // element i of the w tile: (row, column) = (i / BN, i % BN), or for w
+  // given as [N, K] (i % BK, i / BK), consecutive rows of one column in
+  // consecutive threads
+  auto w_row = [&](int i) { return nk ? i % BK : i / BN; };
+  auto w_col = [&](int i) { return nk ? i / BK : i % BN; };
   auto fetch = [&](int k0) {
 #pragma unroll
     for (int r = 0; r < XPT; ++r) {
@@ -877,8 +894,8 @@ __global__ void __launch_bounds__(kc::NT, kc::BLOCKS_PER_SM)
     }
 #pragma unroll
     for (int r = 0; r < WPT; ++r) {
-      const int i = tid + r * NT, gk = k0 + i / BN, gn = n0 + i % BN;
-      wr[r] = gk < ke && gn < N ? w[(size_t)gk * N + gn] : T(0.0f);
+      const int i = tid + r * NT, gk = k0 + w_row(i), gn = n0 + w_col(i);
+      wr[r] = gk < ke && gn < N ? w[w_index(gk, gn, N, nk)] : T(0.0f);
     }
   };
 
@@ -899,9 +916,9 @@ __global__ void __launch_bounds__(kc::NT, kc::BLOCKS_PER_SM)
       const int i = tid + r * NT;
       const int v = weight_level<QUANT, T>(wr[r], tab, base, sw, lev);
       if constexpr (LOG)
-        ws[i / BN][i % BN] = mitchell_op<true>(v);
+        ws[w_row(i)][w_col(i)] = mitchell_op<true>(v);
       else
-        ws[i / BN][i % BN] = v;
+        ws[w_row(i)][w_col(i)] = v;
     }
     __syncthreads();
     if (k0 + BK < ke) fetch(k0 + BK);
@@ -957,27 +974,30 @@ SplitPlan core_plan(int M, int N, int K) {
 
 template <int MUL, bool QUANT, typename T>
 void run_contract(const void* x, const void* w, const float* scales, int* planes, int M, int N,
-                  int K, int drop_bits, float lev, cudaStream_t st) {
+                  int K, int drop_bits, float lev, int nk, cudaStream_t st) {
   const SplitPlan p = core_plan(M, N, K);
   contract<MUL, QUANT, T><<<dim3(p.gx, p.gy, p.gz), kc::NT, 0, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), scales, planes, M, N, K,
-      p.spb * kc::BK, drop_bits, lev);
+      p.spb * kc::BK, drop_bits, lev, nk);
 }
 
 template <bool QUANT>
 void contract_dispatch(int mul, int in_bf16, const void* x, const void* w, const float* scales,
-                       int* acc, int M, int N, int K, int drop_bits, float lev, cudaStream_t st) {
+                       int* acc, int M, int N, int K, int drop_bits, float lev, int nk,
+                       cudaStream_t st) {
   if (mul == MUL_APPROX) {
     if (in_bf16)
-      run_contract<MUL_APPROX, QUANT, __nv_bfloat16>(x, w, scales, acc, M, N, K, drop_bits, lev, st);
+      run_contract<MUL_APPROX, QUANT, __nv_bfloat16>(x, w, scales, acc, M, N, K, drop_bits, lev,
+                                                     nk, st);
     else
-      run_contract<MUL_APPROX, QUANT, float>(x, w, scales, acc, M, N, K, drop_bits, lev, st);
+      run_contract<MUL_APPROX, QUANT, float>(x, w, scales, acc, M, N, K, drop_bits, lev, nk, st);
   } else {
     if (in_bf16)
       run_contract<MUL_MITCHELL, QUANT, __nv_bfloat16>(x, w, scales, acc, M, N, K, drop_bits, lev,
-                                                       st);
+                                                       nk, st);
     else
-      run_contract<MUL_MITCHELL, QUANT, float>(x, w, scales, acc, M, N, K, drop_bits, lev, st);
+      run_contract<MUL_MITCHELL, QUANT, float>(x, w, scales, acc, M, N, K, drop_bits, lev, nk,
+                                               st);
   }
 }
 
@@ -1008,11 +1028,12 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], uint
 
 // Stage rows [s0, s0 + KS) of the split's range [.., r1): A' by 16-byte
 // cp.async copies (zero-filled past M; A' rows are zero past K); w by
-// 16-byte copies with VEC (zero-filled past r1 and N), else element loads.
+// 16-byte copies with VEC (zero-filled past r1 and N), else element loads
+// (nk as for load_stage).
 template <typename T, bool VEC>
 __device__ __forceinline__ void load_mma_stage(MmaStage<T>& sg, const uint4* __restrict__ aslots,
                                                const T* __restrict__ w, int s0, int r1, int m0,
-                                               int n0, int M, int N, int Kp, int tid) {
+                                               int n0, int M, int N, int Kp, int tid, int nk) {
   using namespace k1;
   constexpr int AC = KS * S / 16;  // copies of an A' row
   for (int i = tid; i < BM * AC; i += NT) {
@@ -1030,8 +1051,8 @@ __device__ __forceinline__ void load_mma_stage(MmaStage<T>& sg, const uint4* __r
     }
   } else {
     for (int i = tid; i < KS * BN; i += NT) {
-      const int rr = i / BN, n = n0 + i % BN;
-      sg.w[rr][i % BN] = s0 + rr < r1 && n < N ? w[(size_t)(s0 + rr) * N + n] : T(0.0f);
+      const int rr = nk ? i % KS : i / BN, c = nk ? i / KS : i % BN, n = n0 + c;
+      sg.w[rr][c] = s0 + rr < r1 && n < N ? w[w_index(s0 + rr, n, N, nk)] : T(0.0f);
     }
   }
 }
@@ -1051,7 +1072,7 @@ template <bool QUANT, typename T, bool VEC>
 __global__ void __launch_bounds__(k1::NT, k1::BLOCKS_PER_SM)
     mma_contract(const uint4* __restrict__ aslots, const T* __restrict__ w,
                  const float* __restrict__ scales, int* __restrict__ planes, int M, int N, int K,
-                 int spb, int drop_bits, float lev) {
+                 int spb, int drop_bits, float lev, int nk) {
   using namespace k1;
   constexpr bool TABLE = QUANT && sizeof(T) == 2;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1071,7 +1092,8 @@ __global__ void __launch_bounds__(k1::NT, k1::BLOCKS_PER_SM)
   }
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_st) load_mma_stage<T, VEC>(ring[s], aslots, w, r0 + s * KS, r1, m0, n0, M, N, Kp, tid);
+    if (s < n_st) load_mma_stage<T, VEC>(ring[s], aslots, w, r0 + s * KS, r1, m0, n0, M, N, Kp, tid,
+                                        nk);
     cp_async_commit();
   }
   // the slot table: entry b + 128 is b_slots(b), its two 8-byte halves
@@ -1100,7 +1122,8 @@ __global__ void __launch_bounds__(k1::NT, k1::BLOCKS_PER_SM)
     __syncthreads();  // stage st has landed; every warp is done with stage st - 1
     const int nx = st + STAGES - 1;
     if (nx < n_st)
-      load_mma_stage<T, VEC>(ring[nx % STAGES], aslots, w, r0 + nx * KS, r1, m0, n0, M, N, Kp, tid);
+      load_mma_stage<T, VEC>(ring[nx % STAGES], aslots, w, r0 + nx * KS, r1, m0, n0, M, N, Kp, tid,
+                             nk);
     cp_async_commit();
 
     const MmaStage<T>& sg = ring[st % STAGES];
@@ -1185,7 +1208,7 @@ SplitPlan mma_plan(int M, int N, int K) {
 
 template <bool QUANT, typename T, bool VEC>
 void launch_mma(const uint4* aslots, const T* w, const float* scales, int* planes, int M, int N,
-                int K, int drop_bits, float lev, cudaStream_t st) {
+                int K, int drop_bits, float lev, int nk, cudaStream_t st) {
   using namespace k1;
   const SplitPlan p = mma_plan(M, N, K);
   const int smem = STAGES * (int)sizeof(MmaStage<T>) + 256 * 16 + k2::TAB * 2;
@@ -1199,42 +1222,42 @@ void launch_mma(const uint4* aslots, const T* w, const float* scales, int* plane
   }();
   (void)attr;
   mma_contract<QUANT, T, VEC><<<dim3(p.gx, p.gy, p.gz), NT, smem, st>>>(
-      aslots, w, scales, planes, M, N, K, p.spb, drop_bits, lev);
+      aslots, w, scales, planes, M, N, K, p.spb, drop_bits, lev, nk);
 }
 
 template <bool QUANT, typename T>
 void run_mma(const uint4* aslots, const void* w, const float* scales, int* planes, int M, int N,
-             int K, int drop_bits, float lev, cudaStream_t st) {
-  const bool vec = N % (16 / sizeof(T)) == 0 && aligned(w, 16);
+             int K, int drop_bits, float lev, int nk, cudaStream_t st) {
+  const bool vec = !nk && N % (16 / sizeof(T)) == 0 && aligned(w, 16);
   const T* wt = static_cast<const T*>(w);
   if (vec)
-    launch_mma<QUANT, T, true>(aslots, wt, scales, planes, M, N, K, drop_bits, lev, st);
+    launch_mma<QUANT, T, true>(aslots, wt, scales, planes, M, N, K, drop_bits, lev, 0, st);
   else
-    launch_mma<QUANT, T, false>(aslots, wt, scales, planes, M, N, K, drop_bits, lev, st);
+    launch_mma<QUANT, T, false>(aslots, wt, scales, planes, M, N, K, drop_bits, lev, nk, st);
 }
 
 template <bool QUANT>
 void mma_dispatch(int in_bf16, const uint4* aslots, const void* w, const float* scales, int* acc,
-                  int M, int N, int K, int drop_bits, float lev, cudaStream_t st) {
+                  int M, int N, int K, int drop_bits, float lev, int nk, cudaStream_t st) {
   if (in_bf16)
-    run_mma<QUANT, __nv_bfloat16>(aslots, w, scales, acc, M, N, K, drop_bits, lev, st);
+    run_mma<QUANT, __nv_bfloat16>(aslots, w, scales, acc, M, N, K, drop_bits, lev, nk, st);
   else
-    run_mma<QUANT, float>(aslots, w, scales, acc, M, N, K, drop_bits, lev, st);
+    run_mma<QUANT, float>(aslots, w, scales, acc, M, N, K, drop_bits, lev, nk, st);
 }
 
 // The contraction for M rows: K2's decode contraction at M <= 4, else the
 // tensor-core route (aslots: A' written) or the CUDA-core prefill
-// contraction.
+// contraction.  nk: 0 for w [K, N], K for w given as [N, K].
 template <bool QUANT>
 void contract_rows(int mul, int in_bf16, const void* x, const void* w, const uint4* aslots,
                    const float* scales, int* acc, int M, int N, int K, int bits, int drop_bits,
-                   float lev, cudaStream_t st) {
+                   float lev, int nk, cudaStream_t st) {
   if (M <= k2::BM)
-    decode_dispatch<QUANT>(mul, in_bf16, x, w, scales, acc, M, N, K, drop_bits, lev, st);
+    decode_dispatch<QUANT>(mul, in_bf16, x, w, scales, acc, M, N, K, drop_bits, lev, nk, st);
   else if (tc_route(mul, M, bits, drop_bits))
-    mma_dispatch<QUANT>(in_bf16, aslots, w, scales, acc, M, N, K, drop_bits, lev, st);
+    mma_dispatch<QUANT>(in_bf16, aslots, w, scales, acc, M, N, K, drop_bits, lev, nk, st);
   else
-    contract_dispatch<QUANT>(mul, in_bf16, x, w, scales, acc, M, N, K, drop_bits, lev, st);
+    contract_dispatch<QUANT>(mul, in_bf16, x, w, scales, acc, M, N, K, drop_bits, lev, nk, st);
 }
 
 // A' of integer-valued activations (K1's integer entry): row m of x as
@@ -1343,7 +1366,8 @@ extern "C" int vpu_matmul(int mul, int in_bf16, const void* x, const void* w, vo
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  contract_rows<false>(mul, in_bf16, x, w, a, nullptr, acc, M, N, K, bits, drop_bits, 0.0f, st);
+  contract_rows<false>(mul, in_bf16, x, w, a, nullptr, acc, M, N, K, bits, drop_bits, 0.0f, 0,
+                       st);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;  // not launched: the accumulators are untouched
   const size_t n = (size_t)M * N;
@@ -1379,7 +1403,7 @@ extern "C" int vpu_matmul_fused(int mul, int in_bf16, int out_bf16, const void* 
                                 const float* coeffs, int P, float eps, int* acc,
                                 void* out, int M, int N, int K, int drop_bits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  decode_dispatch<false>(mul, in_bf16, x, w, nullptr, acc, M, N, K, drop_bits, 0.0f, st);
+  decode_dispatch<false>(mul, in_bf16, x, w, nullptr, acc, M, N, K, drop_bits, 0.0f, 0, st);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;  // not launched: the accumulators are untouched
   finish_dispatch(out_bf16, ClearedSum{acc}, pre, gain, add, coeffs, P, eps, out, M,
@@ -1388,7 +1412,8 @@ extern "C" int vpu_matmul_fused(int mul, int in_bf16, int out_bf16, const void* 
 }
 
 // K2 on the operands themselves, x [M,K] and w [K,N] in float32 or
-// bfloat16: the scale pass, the contraction of the operands quantised to
+// bfloat16 (w_nk = 1: w given as its transpose [N,K] row-major, read in
+// place, as a tied LM head reads the embedding): the scale pass, the contraction of the operands quantised to
 // +-lev (lev = 2^bits - 1, lev2 = lev^2 rounded to the operand type, eps
 // = 1e-6 in it), then the prescale, the cast and the epilogue as in
 // vpu_matmul_fused.  hold: 2 + M words and acc: int32 [M,N], all zero on
@@ -1404,7 +1429,7 @@ extern "C" int vpu_quantize_matmul_fused(int mul, int in_bf16, int out_bf16, con
                                          float eps_in, const void* gain, const void* add,
                                          const float* coeffs, int P, float eps,
                                          int* acc, void* out, int M, int N, int K, int drop_bits,
-                                         void* stream) {
+                                         int w_nk, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   uint4* a = tc_route(mul, M, bits, drop_bits) ? static_cast<uint4*>(aslots) : nullptr;
   if (in_bf16)
@@ -1413,7 +1438,8 @@ extern "C" int vpu_quantize_matmul_fused(int mul, int in_bf16, int out_bf16, con
     run_scales<float>(x, w, hold, scales, a, M, K, N, eps_in, lev, lev2, drop_bits, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  contract_rows<true>(mul, in_bf16, x, w, a, scales, acc, M, N, K, bits, drop_bits, lev, st);
+  contract_rows<true>(mul, in_bf16, x, w, a, scales, acc, M, N, K, bits, drop_bits, lev,
+                      w_nk ? K : 0, st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;  // not launched: the accumulators are untouched
   const float* pre = scales + k2::SC_SX + M;

@@ -36,7 +36,7 @@ from repro_torch.core.proxy import OPERAND_EPS, split_signed, tensor_scale
 from repro_torch.kernels import build
 from repro_torch.kernels.epilogue import apply_epilogue
 from repro_torch.kernels.ref import const, sc_matmul_ref
-from repro_torch.kernels.vpu_matmul import _in_dtype, epilogue_operands
+from repro_torch.kernels.vpu_matmul import _in_dtype, epilogue_operands, weight_layout
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KEYS = 64       # thresholds of one table row: word w of sequences k and k + K
@@ -133,15 +133,28 @@ def sc_tables_ref(ux, uw):
     return torch.cat([keys, masks.flatten(-2), entries, pad], dim=-1).reshape(-1)
 
 
+def row_major(op, a, b):
+    """``op(a, b)`` (an elementwise torch function with ``out=``), written
+    row-major where ``a`` is not: a tied LM head's weight is the view
+    ``embed.T``, an elementwise op would keep its transposed strides, and
+    the kernels refuse such planes.  One pass, the same values."""
+    if a.is_contiguous():
+        return op(a, b)
+    out = torch.empty(torch.broadcast_shapes(a.shape, b.shape),
+                      dtype=torch.result_type(a, b), device=a.device)
+    return op(a, b, out=out)
+
+
 def stream_planes(x, w, gain: float):
     """The SC emulator's value-domain code (``repro.core.backends.
     _emulate_sc``): per-tensor scales, the clipped probability planes of x
     and w at ``gain``, and the rescale ``(sx * sw) / gain^2``, each op
-    rounded to the operands' dtype as JAX's weak typing rounds it."""
+    rounded to the operands' dtype as JAX's weak typing rounds it.  The
+    planes are row-major [K, N] even where w is a transposed view."""
     sx = tensor_scale(x)
     sw = tensor_scale(w)
     xp, xn = split_signed(x * (const(gain, sx) / sx))
-    wp, wn = split_signed(w * (const(gain, sw) / sw))
+    wp, wn = split_signed(row_major(torch.mul, w, const(gain, sw) / sw))
     xp, xn, wp, wn = (torch.clamp(t, 0.0, 1.0) for t in (xp, xn, wp, wn))
     rescale = (sx * sw) / const(gain * gain, sx)
     return xp, xn, wp, wn, rescale
@@ -183,9 +196,10 @@ def _check(x, w: Tuple, n_bits: int, ux, uw):
     _check_operands((x, top, bottom), K, n_bits, ux, uw)
 
 
-def _check_operands(operands, K: int, n_bits: int, ux, uw):
+def _check_operands(operands, K: int, n_bits: int, ux, uw, w_nk: int = 0):
     """One CUDA device, one dtype (float32 or bfloat16) for the operands,
-    float32 draws ux [1, n_bits] and uw [2K, n_bits], all contiguous."""
+    float32 draws ux [1, n_bits] and uw [2K, n_bits], all contiguous (but
+    the weight where ``w_nk``: the transpose of a row-major [N, K])."""
     tensors = (*operands, ux, uw)
     if tensors[0].device.type != "cuda" or any(t.device != tensors[0].device for t in tensors):
         raise ValueError(
@@ -203,7 +217,7 @@ def _check_operands(operands, K: int, n_bits: int, ux, uw):
                          f"{tuple(ux.shape)}, {tuple(uw.shape)}")
     if ux.dtype != torch.float32 or uw.dtype != torch.float32:
         raise ValueError("the generator draws must be float32")
-    if not all(t.is_contiguous() for t in tensors):
+    if not all(t.is_contiguous() for i, t in enumerate(tensors) if not (w_nk and i == 1)):
         raise ValueError("the operands and the draws must be contiguous (row-major)")
 
 
@@ -307,16 +321,21 @@ def sc_matmul_words_cuda(xbits, wbits, n_bits: int):
 
 def sc_matmul_quantized_cuda(x, w, gain: float, n_bits: int, draws):
     """The SC prefill projection on the card: x [M, K] and w [K, N]
-    (float32 or bfloat16, one dtype) -> [M, N] in x's dtype, bitwise
+    (float32 or bfloat16, one dtype; w row-major, or the transpose of a
+    row-major [N, K] tensor, read in place: a tied LM head's ``embed.T``)
+    -> [M, N] in x's dtype, bitwise
     :func:`sc_matmul_quantized_ref`, against the streams of ``draws``
     (:class:`SCDraws` or a plain ``(ux, uw)`` pair).  Three launches (the
     scale pass, the contraction of both polarities, the finishing pass),
-    and one more where the draws' tables are not built yet."""
+    and one more where the draws' tables are not built yet.  A transposed
+    weight counts as the ``[N, K]`` entry, ``sc_matmul_packed[quantized,
+    nk]``."""
     draws = SCDraws.of(draws)
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"need x [M, K] and w [K, N]; got {tuple(x.shape)}, {tuple(w.shape)}")
     K, N = w.shape
-    _check_operands((x, w), K, n_bits, *draws)
+    w_nk = weight_layout(w)
+    _check_operands((x, w), K, n_bits, *draws, w_nk=w_nk)
     M, dev = x.shape[0], x.device
     tab = draws.tables
     stream = _stream(dev)
@@ -325,11 +344,12 @@ def sc_matmul_quantized_cuda(x, w, gain: float, n_bits: int, draws):
     scales = torch.empty((3,), dtype=torch.float32, device=dev)
     out = torch.empty((M, N), dtype=x.dtype, device=dev)
     _launch_clearing(
-        dev, stream, "sc_matmul_packed[quantized]", "sc_matmul_quantized",
+        dev, stream, "sc_matmul_packed[quantized,nk]" if w_nk else "sc_matmul_packed[quantized]",
+        "sc_matmul_quantized",
         _DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(), tab.data_ptr(),
         acc[2 * words:].data_ptr(), scales.data_ptr(), acc.data_ptr(), acc[words:].data_ptr(),
         out.data_ptr(), M, N, K, n_bits, _in_dtype(OPERAND_EPS, x.dtype),
-        _in_dtype(gain, x.dtype), _in_dtype(gain * gain, x.dtype), stream,
+        _in_dtype(gain, x.dtype), _in_dtype(gain * gain, x.dtype), w_nk, stream,
     )
     return out
 

@@ -101,7 +101,21 @@ def truncated_slots(a, b, drop_bits: int):
     return ap, bp
 
 
-def _check(x, w):
+def weight_layout(w) -> int:
+    """0 for a row-major [K, N] weight; 1 for the transpose of a row-major
+    [N, K] tensor (``embed.T``, a tied LM head's weight), which the serving
+    entries read in place; else a ``ValueError``."""
+    if w.is_contiguous():
+        return 0
+    if w.dim() == 2 and w.t().is_contiguous():
+        return 1
+    raise ValueError(f"w must be row-major [K, N], or the transpose of a row-major [N, K]; "
+                     f"got strides {tuple(w.stride())} for shape {tuple(w.shape)}")
+
+
+def _check(x, w, transposed_ok: bool = False) -> int:
+    """The operands' checks; returns :func:`weight_layout` (1 only where
+    ``transposed_ok``)."""
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(
             f"CUDA kernel needs x and w on one CUDA device; got {x.device}, {w.device}"
@@ -110,10 +124,14 @@ def _check(x, w):
         raise ValueError(f"need x [M,K] and w [K,N]; got {tuple(x.shape)}, {tuple(w.shape)}")
     if x.dtype != w.dtype or x.dtype not in _DTYPE_CODE:
         raise ValueError(f"x and w must share float32 or bfloat16; got {x.dtype}, {w.dtype}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("x and w must be contiguous (row-major)")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous (row-major)")
+    w_nk = weight_layout(w)
+    if w_nk and not transposed_ok:
+        raise ValueError("w must be contiguous (row-major)")
     if x.shape[1] > MAX_K:
         raise ValueError(f"K={x.shape[1]} overflows the int32 accumulator (max {MAX_K})")
+    return w_nk
 
 
 
@@ -291,15 +309,18 @@ def int_operand_matmul_fused_cuda(
     x, w, bits: int, mul: str, epi: Dict, out_dtype, drop_bits: int = 0
 ):
     """The operands themselves: x [M, K] and w [K, N] (float32 or
-    bfloat16) quantised to ``bits``-bit integers as
-    :func:`int_operand_quantize` does, contracted through the named
+    bfloat16; w row-major, or the transpose of a row-major [N, K] tensor,
+    read in place: a tied LM head's ``embed.T``) quantised to ``bits``-bit
+    integers as :func:`int_operand_quantize` does, contracted through the named
     multiplier, rescaled, cast to ``out_dtype`` and passed through the
     epilogue ``epi``: three launches (the scale pass, the contraction and
     the finishing pass), each weight read from device memory by the first
     two only.  M <= 4 rows is K2, the decode projection; more rows are the
     prefill projection (K1's function with the quantisation taken in),
-    counted as ``elementwise_matmul[{mul},quantized]``."""
-    _check(x, w)
+    counted as ``elementwise_matmul[{mul},quantized]``.  A transposed
+    weight counts as the ``[N, K]`` entry: ``elementwise_matmul_fused[{mul},
+    nk]`` and ``elementwise_matmul[{mul},quantized,nk]``."""
+    w_nk = _check(x, w, transposed_ok=True)
     if not 1 <= bits <= MAX_BITS:
         raise ValueError(f"the CUDA kernel takes operands of 1 to {MAX_BITS} bits; got {bits}")
     M, K = x.shape
@@ -318,14 +339,16 @@ def int_operand_matmul_fused_cuda(
                          device=dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     levels = (1 << bits) - 1
-    kernel = f"elementwise_matmul_fused[{mul}]" if decode else \
-        f"elementwise_matmul[{mul},quantized]"
+    # the [N, K] entry (a tied LM head) counts apart: its loads differ
+    nk = ",nk" if w_nk else ""
+    kernel = f"elementwise_matmul_fused[{mul}{nk}]" if decode else \
+        f"elementwise_matmul[{mul},quantized{nk}]"
     _launch_clearing(
         dev, stream, kernel, "vpu_quantize_matmul_fused",
         _MUL_CODE[mul], _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
         x.data_ptr(), w.data_ptr(), hold.data_ptr(), scales.data_ptr(),
         slots.data_ptr(), bits,
         float(levels), _in_dtype(levels * levels, x.dtype), _in_dtype(OPERAND_EPS, x.dtype),
-        *ops.pointers()[1:], acc.data_ptr(), out.data_ptr(), M, N, K, drop_bits, stream,
+        *ops.pointers()[1:], acc.data_ptr(), out.data_ptr(), M, N, K, drop_bits, w_nk, stream,
     )
     return out

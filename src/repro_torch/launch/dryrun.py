@@ -21,12 +21,14 @@ def per_site_macs(cfg: ModelConfig, seq_len: int = 1, batch: int = 1
     breakdown the search's cost model (:mod:`repro_torch.search.
     costmodel`) prices.  ``bwd_macs`` is twice the forward count (dL/dx
     and dL/dW, each a matmul of the forward's size).  Only projection sites
-    count: the attention einsums are not ``dense()`` sites.  The DENSE
-    and MOE families' sites, as the reference counts them: the router at
-    one copy a layer, each expert site at ``top_k`` (the experts a token
-    runs through); the SSM and hybrid counts wait for those families
-    (ROADMAP A5)."""
-    if cfg.family not in (Family.DENSE, Family.MOE):
+    count: the attention einsums and the SSD recurrence are not ``dense()``
+    sites.  As the reference counts them: the router at one copy a layer,
+    each expert site at ``top_k`` (the experts a token runs through); the
+    SSM in projection at its unpadded width ``2 d_in + 2 N + H``
+    (REPRO_SSM_PAD's dead columns carry no useful MACs), at one copy a
+    mamba layer; a HYBRID model's shared attention and MLP sites at one
+    copy a group."""
+    if cfg.family not in (Family.DENSE, Family.MOE, Family.SSM, Family.HYBRID):
         raise NotImplementedError(
             f"per_site_macs for family {cfg.family.value!r} is not yet ported (ROADMAP A5)")
     d, f = cfg.d_model, cfg.d_ff
@@ -39,6 +41,8 @@ def per_site_macs(cfg: ModelConfig, seq_len: int = 1, batch: int = 1
         "attn_o": (h * dh, d),
     }
     mlp = {"mlp_gate": (d, f), "mlp_up": (d, f), "mlp_down": (f, d)}
+    d_in, H, N = cfg.ssm_d_inner, cfg.ssm_n_heads, cfg.ssm_state
+    ssm = {"ssm_in": (d, 2 * d_in + 2 * N + H), "ssm_out": (d_in, d)}
     out: Dict[str, Dict[str, float]] = {}
 
     def add(site: str, k: int, n: int, copies: float) -> None:
@@ -49,6 +53,14 @@ def per_site_macs(cfg: ModelConfig, seq_len: int = 1, batch: int = 1
         entry["macs"] += macs
         entry["bwd_macs"] += 2.0 * macs
 
+    if cfg.family in (Family.SSM, Family.HYBRID):
+        for site, (k, n) in ssm.items():
+            add(site, k, n, cfg.n_layers)  # groups and tail: n_layers mixers
+        G = cfg.n_layers // cfg.shared_attn_every if cfg.family == Family.HYBRID else 0
+        for site, (k, n) in {**attn, **mlp}.items():
+            add(site, k, n, G)  # the shared block, applied once a group
+        add("lm_head", d, cfg.vocab_size, 1)
+        return out
     for site, (k, n) in attn.items():
         add(site, k, n, cfg.n_layers)
     if cfg.n_experts:

@@ -30,7 +30,9 @@ has each chip's probe losses.
 backend or site map (per-slot backend indices, ``Engine(switch=True)``);
 it refuses ``--static`` and ``--fleet``, as the reference does, and MoE
 archs (``--arch dbrx-132b``, ``grok-1-314b``), whose engine refuses it.  The
-reference's ``--fabric`` waits for ROADMAP A7.
+reference's ``--fabric`` waits for ROADMAP A7.  The SSM and HYBRID archs
+(``--arch mamba2-130m``, ``zamba2-1.2b``) serve on static lanes: their
+``--switch`` and ``--fleet`` wait for ROADMAP A5.
 
 ``--static`` runs the static-batch baseline instead (exact path only).
 Prefill/decode tok/s are steady-state: the first call of each shape is
@@ -49,7 +51,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ApproxConfig, parse_site_backends
 from repro_torch.hw import DriftModel, Fleet, VariationModel
 from repro_torch.models import build_model
-from repro_torch.models.transformer import ALL_SITES
+from repro_torch.models.transformer import ALL_SITES, SERVING_ONLY
 from repro_torch.runtime.engine import Engine, run_static_baseline, synthetic_requests
 
 
@@ -148,6 +150,9 @@ def main(argv=None) -> dict:
     if args.switch and cfg.n_experts:
         ap.error(f"--switch does not support MoE models ({args.arch}): expert routing "
                  "couples slot rows, so per-slot backend selection is ill-defined")
+    if (args.switch or args.fleet) and cfg.family in SERVING_ONLY:
+        ap.error(f"--switch and --fleet on the {cfg.family.value} family ({args.arch}) are "
+                 "not yet ported (ROADMAP A5)")
     model = build_model(cfg)
     params = model.init(args.seed, device=args.device)
     queue = build_queue(args, cfg.vocab_size, site_backends)

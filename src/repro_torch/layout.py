@@ -22,27 +22,48 @@ def flatten(tree, prefix: str = "") -> List[Tuple[str, Any]]:
     return out
 
 
+def _stacked_part(names: List[str], part: str):
+    """The reference's subtree ``part`` of the port's parameter ``names``
+    under ``part.``: leaves stacked over one layer index (``layers.<l>``,
+    ``tail.<l>``), over a group and a layer (a HYBRID model's
+    ``layers.<g>.<j>``), or none (its ``shared`` block), each leaf the
+    name it holds or the (nested) tuple of its layers' names."""
+    rows = [n.split(".")[1:] for n in names if n.split(".")[0] == part]
+    if not rows:
+        return None
+    depth = sum(1 for c in rows[0][:2] if c.isdigit())
+    by_leaf: Dict[Tuple[str, ...], Dict[Tuple[int, ...], str]] = {}
+    for r in rows:
+        by_leaf.setdefault(tuple(r[depth:]), {})[tuple(int(i) for i in r[:depth])] = \
+            ".".join([part] + r)
+    out: Dict[str, Any] = {}
+    for leaf, at in by_leaf.items():
+        shape = tuple(1 + max(i[d] for i in at) for d in range(depth))
+
+        def nest(idx, _at=at, _shape=shape):
+            if len(idx) == depth:
+                return _at[idx]
+            return tuple(nest(idx + (i,)) for i in range(_shape[len(idx)]))
+
+        node = out
+        for k in leaf[:-1]:
+            node = node.setdefault(k, {})
+        node[leaf[-1]] = nest(())
+    return out
+
+
 def named_paths(names) -> Dict[str, Any]:
     """The reference's parameter layout of the port's parameter ``names``:
     the same nested dicts, each leaf the name it holds, or for a leaf the
-    reference stacks over the layers the tuple of its layers' names."""
+    reference stacks over the layers the tuple of its layers' names (a
+    HYBRID model's mamba layers: a tuple of groups, each a tuple of
+    names)."""
     names = list(names)
-    n_layers = 1 + max(int(k.split(".")[1]) for k in names if k.startswith("layers."))
-
-    def stacked(suffix):
-        return tuple(f"layers.{l}.{suffix}" for l in range(n_layers))
-
-    parts = {}  # attn, and mlp or (the MoE family) moe
-    for k in names:
-        if k.startswith("layers.0."):
-            _, _, part, *leaf = k.split(".")
-            if leaf:
-                parts.setdefault(part, {})[leaf[0]] = stacked(f"{part}.{leaf[0]}")
-    tree = {
-        "embed": {"tok": "embed"},
-        "final_norm": "final_norm",
-        "layers": {"ln1": stacked("ln1"), "ln2": stacked("ln2"), **parts},
-    }
+    tree = {"embed": {"tok": "embed"}, "final_norm": "final_norm"}
+    for part in ("layers", "shared", "tail"):
+        sub = _stacked_part(names, part)
+        if sub is not None:
+            tree[part] = sub
     if "lm_head" in names:
         tree["head"] = {"lm_head": "lm_head"}
     return tree

@@ -1,39 +1,72 @@
 """Single-token decode (``serve_step``), bulk prefill and slot-cache ops,
-DENSE and MOE families (port of ``repro.models.decode``).
+every ported family (port of ``repro.models.decode``).
 
-The cache is ``{'k': [L, B, S, KV, dh], 'v': ...}`` for both.  Unlike the
-reference, whose arrays are immutable, ``serve_step`` and the slot ops
-update the cache in place (one cache per serving lane, no copies per
-step) and return the same dict.  The batch dimension holds fixed *slots*
-that requests are admitted into and evicted from.
+Caches, stacked as the parameters are:
+
+* DENSE, MOE: ``{'k': [L, B, S, KV, dh], 'v': ...}``
+* SSM:        ``{'state': [L, B, H, N, P] float32, 'conv': [L, B, W-1, C]}``
+* HYBRID:     ``{'mamba': {'state': [G, k, B, ...], 'conv': ...}, 'tail':
+  {...: [t, B, ...]}, 'shared': {'k': [G, B, S, KV, dh], 'v': ...}}``
+
+Unlike the reference, whose arrays are immutable, ``serve_step`` and the
+slot ops update the cache in place (one cache per serving lane, no copies
+per step) and return the same dict.  The batch dimension holds fixed
+*slots* that requests are admitted into and evicted from; the slot (and
+sequence) axis of each leaf is found as the reference finds it
+(:func:`cache_axes`).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ApproxConfig, ModelConfig
+from repro_torch.configs.base import ApproxConfig, Family, ModelConfig
 from repro_torch.core.approx_linear import dense
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 from repro_torch.models.transformer import (
     Transformer,
     apply_model,
     check_family,
+    hybrid_layout,
     layer_calibration,
 )
 
 
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of trees of nested dicts of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _stacked(tree, lead: Tuple[int, ...]):
+    return _tree_map(lambda t: t.expand(lead + t.shape).clone(), tree)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> Dict[str, Any]:
     check_family(cfg)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
     dtype = getattr(torch, cfg.compute_dtype)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-    }
+
+    def kv(n_outer):
+        shape = (n_outer, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    if cfg.family == Family.SSM:
+        return _stacked(S.init_ssm_cache(cfg, batch, dtype, device), (cfg.n_layers,))
+    if cfg.family == Family.HYBRID:
+        G, k, tail = hybrid_layout(cfg)
+        one = S.init_ssm_cache(cfg, batch, dtype, device)
+        cache = {"mamba": _stacked(one, (G, k)), "shared": kv(G)}
+        if tail:
+            cache["tail"] = _stacked(one, (tail,))
+        return cache
+    return kv(cfg.n_layers)
 
 
 def _attn_decode_block(x, p, cfg, ctx, ck, cv, pos, flash=False):
@@ -46,6 +79,10 @@ def _attn_decode_block(x, p, cfg, ctx, ck, cv, pos, flash=False):
     else:
         f = L.mlp(L.rmsnorm(x, p.ln2, cfg.norm_eps), p.mlp, ctx)
     return x + f
+
+
+def _mamba_decode_block(x, p: S.SSMBlock, cfg, ctx, cache):
+    return x + S.ssm_decode_step(L.rmsnorm(x, p.ln1, cfg.norm_eps), p.ssm, cfg, ctx, cache)
 
 
 def serve_step(
@@ -70,18 +107,37 @@ def serve_step(
     error is subtracted, how the engine serves a recalibrated chip.  Every
     layer's ctx shares the step's memo, so each site still draws and builds
     its SC tables, and recombines the chip's terms, once a step; so does
-    each expert site of a MoE model (its sub-contexts share the memo).
+    each expert site of a MoE model (its sub-contexts share the memo), and
+    so do a HYBRID model's shared block's sites, which recur once a group.
     A MoE step routes every row, idle slots included: they take expert
-    capacity, as in the reference.
+    capacity, as in the reference.  An SSM row's state advances every
+    step, an idle slot's too, as in the reference.
     ``flash`` takes the decode attention kernel.  Returns (logits
     [B, vocab], cache updated in place)."""
     check_family(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
     threaded = ctx is not None and calib is not None
+
+    def lctx(part, i, j=None):
+        return ctx.with_calib(layer_calibration(calib, i, part, j)) if threaded else ctx
+
     x = params.embed[tokens].to(dtype)  # [B, 1, D]
-    for l, p in enumerate(params.layers):
-        lctx = ctx.with_calib(layer_calibration(calib, l)) if threaded else ctx
-        x = _attn_decode_block(x, p, cfg, lctx, cache["k"][l], cache["v"][l], pos, flash)
+    if cfg.family == Family.SSM:
+        for l, p in enumerate(params.layers):
+            x = _mamba_decode_block(x, p, cfg, lctx("layers", l), M.index_tree(cache, l))
+    elif cfg.family == Family.HYBRID:
+        for g, group in enumerate(params.layers):
+            for j, p in enumerate(group):
+                x = _mamba_decode_block(x, p, cfg, lctx("layers", g, j),
+                                        M.index_tree(M.index_tree(cache["mamba"], g), j))
+            x = _attn_decode_block(x, params.shared, cfg, lctx("shared", g),
+                                   cache["shared"]["k"][g], cache["shared"]["v"][g], pos, flash)
+        for j, p in enumerate(params.tail or ()):
+            x = _mamba_decode_block(x, p, cfg, lctx("tail", j), M.index_tree(cache["tail"], j))
+    else:
+        for l, p in enumerate(params.layers):
+            x = _attn_decode_block(x, p, cfg, lctx("layers", l), cache["k"][l], cache["v"][l],
+                                   pos, flash)
     x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
     w = params.embed.T if cfg.tie_embeddings else params.lm_head
     hctx = ctx.with_calib(calib["head"]) if threaded else ctx
@@ -91,37 +147,59 @@ def serve_step(
     return logits, cache
 
 
+def _diff_axis(a, b) -> int:
+    """The one axis where two shapes differ; -1 where they agree."""
+    diffs = [i for i, (x, y) in enumerate(zip(a.shape, b.shape)) if x != y]
+    if not diffs:
+        return -1
+    assert len(diffs) == 1, f"ambiguous axis diff: {a.shape} vs {b.shape}"
+    return diffs[0]
+
+
+@functools.lru_cache(maxsize=None)
+def cache_axes(cfg: ModelConfig):
+    """(slot axes, sequence axes): trees matched to the cache, each leaf the
+    axis index of its slot (batch) dim and of its sequence dim (-1 for a
+    leaf without one, an SSM state), found as the reference finds them: by
+    diffing the shapes of caches that differ only in batch or ``max_seq``
+    (made on the meta device: no memory)."""
+    a, b, c = (init_cache(cfg, n, s, "meta") for n, s in ((2, 5), (3, 5), (2, 7)))
+    return _tree_map(_diff_axis, a, b), _tree_map(_diff_axis, a, c)
+
+
 def slot_insert(cfg: ModelConfig, cache, sub, slot: int):
     """Write a k-slot sub-cache into ``cache`` from slot index ``slot``
-    (in place).  Every row is fully overwritten, so a freed slot needs no
-    reset before reuse."""
-    for key in ("k", "v"):
-        n = sub[key].shape[1]
-        cache[key][:, slot : slot + n] = sub[key].to(cache[key].dtype)
+    (in place).  Every leaf is fully overwritten along its other axes, so a
+    freed slot needs no reset before reuse."""
+    def put(c, s, ax):
+        c.narrow(ax, slot, s.shape[ax]).copy_(s)
+
+    _tree_map(put, cache, sub, cache_axes(cfg)[0])
     return cache
 
 
 def slot_extract(cfg: ModelConfig, cache, slot: int, k: int = 1):
     """A copy of the k-slot sub-cache starting at slot index ``slot``."""
-    return {key: cache[key][:, slot : slot + k].clone() for key in ("k", "v")}
+    return _tree_map(lambda c, ax: c.narrow(ax, slot, k).clone(), cache, cache_axes(cfg)[0])
 
 
 def slot_reset(cfg: ModelConfig, cache, slot: int, k: int = 1):
     """Zero a slot (eviction), in place."""
-    for key in ("k", "v"):
-        cache[key][:, slot : slot + k].zero_()
+    _tree_map(lambda c, ax: c.narrow(ax, slot, k).zero_(), cache, cache_axes(cfg)[0])
     return cache
 
 
 def pad_cache_to(cfg: ModelConfig, cache, max_seq: int):
-    """Right-pad the sequence axis of a cache to ``max_seq`` with zeros.
+    """Right-pad every sequence axis of a cache to ``max_seq`` with zeros.
     Rows past a slot's position are never attended: decode masks
     ``index > pos`` and writes ``pos`` before reading it."""
-    out = {}
-    for key, leaf in cache.items():
-        extra = max_seq - leaf.shape[2]
-        out[key] = F.pad(leaf, (0, 0, 0, 0, 0, extra)) if extra else leaf
-    return out
+    def pad(leaf, ax):
+        if ax < 0 or leaf.shape[ax] == max_seq:
+            return leaf
+        widths = [0, 0] * (leaf.dim() - ax - 1) + [0, max_seq - leaf.shape[ax]]
+        return F.pad(leaf, widths)
+
+    return _tree_map(pad, cache, cache_axes(cfg)[1])
 
 
 def prefill(
@@ -143,7 +221,8 @@ def prefill(
     """Bulk prefill: one full-sequence forward over ``tokens [B, L]``.
 
     ``lengths`` ([B], default L) marks true prompt lengths of right-padded
-    rows; the returned logits are taken at ``lengths - 1``.  Returns
+    rows: SSM recurrences stand still past each row's length, and the
+    returned logits are taken at ``lengths - 1``.  Returns
     ``(last_logits [B, vocab], cache)``, the cache padded to ``max_seq``
     when given.  ``approx`` with ``mode=MODEL`` prefills with bit-accurate
     emulation (composed path, as in the reference); ``rng``, ``draws``,
@@ -160,7 +239,7 @@ def prefill(
         params, {"tokens": tokens}, cfg,
         approx=approx if approx is not None else ApproxConfig(),
         chunk_q=chunk_q, return_cache=True, rng=rng, draws=draws, calib=calib, chip=chip,
-        correct=correct, backend_idx=backend_idx,
+        correct=correct, backend_idx=backend_idx, seq_lens=lengths,
     )
     last = out.logits[torch.arange(B, device=tokens.device), lengths - 1]
     cache = out.cache

@@ -1,5 +1,5 @@
-"""Transformer layers: RMSNorm, RoPE, GQA attention, SwiGLU MLP (port of
-``repro.models.layers``).
+"""Transformer layers: RMSNorm (and Mamba-2's gated RMSNorm), RoPE, GQA
+attention, SwiGLU MLP (port of ``repro.models.layers``).
 
 Weights keep the reference's ``[in, out]`` layout (``y = x @ w``), so
 every projection goes through :func:`repro_torch.core.approx_linear.dense`
@@ -8,8 +8,12 @@ the reference; decode attention takes kernel K3 when ``flash`` is set.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import math
+import os
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -50,6 +54,12 @@ def rmsnorm(x, w, eps: float = 1e-5):
     return out.to(dtype)
 
 
+def gated_rmsnorm(x, gate, w, eps: float = 1e-5):
+    """Mamba-2's ``rmsnorm(x * silu(gate))``: the silu in float32, cast
+    back to x's dtype before the product."""
+    return rmsnorm(x * F.silu(gate.to(torch.float32)).to(x.dtype), w, eps)
+
+
 def rope(x, positions, theta: float):
     """x: [B, T, H, dh]; positions: [B, T] int."""
     dh = x.shape[-1]
@@ -63,11 +73,41 @@ def rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+# a tensor of at least this many elements is drawn in chunks of it, in parallel
+NORMAL_CHUNK = 1 << 22
+
+
+def _chunk_seed(base: int, i: int) -> int:
+    return int(np.random.SeedSequence([base, i]).generate_state(1, np.uint64)[0])
+
+
 def _normal(gen: torch.Generator, shape, scale, dtype, device):
     """Fan-in-scaled normals drawn from the CPU generator ``gen`` and scaled
     on the CPU, then moved to ``device``: the same weights on every device
-    (the card's generator and libm would give others)."""
-    return (torch.randn(shape, generator=gen, dtype=dtype) * scale).to(device)
+    (the card's generator and libm would give others).  A tensor of
+    ``NORMAL_CHUNK`` elements or more takes one draw of ``gen`` as a base
+    seed, and its chunks of ``NORMAL_CHUNK`` come from CPU generators seeded
+    from ``(base, chunk)``, drawn in a thread pool and written into their
+    slices on ``device`` (a full-width ``init`` would take minutes of host
+    time from one generator)."""
+    n = math.prod(shape)
+    if n < NORMAL_CHUNK:
+        return (torch.randn(shape, generator=gen, dtype=dtype) * scale).to(device)
+    base = int(torch.randint(0, 2**62, (1,), generator=gen))
+    out = torch.empty(shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+
+    def draw(i):
+        g = torch.Generator()
+        g.manual_seed(_chunk_seed(base, i))
+        lo = i * NORMAL_CHUNK
+        m = min(NORMAL_CHUNK, n - lo)
+        flat[lo:lo + m].copy_(torch.randn((m,), generator=g, dtype=dtype) * scale)
+
+    chunks = -(-n // NORMAL_CHUNK)
+    with concurrent.futures.ThreadPoolExecutor(max_workers=min(chunks, os.cpu_count() or 1)) as pool:
+        list(pool.map(draw, range(chunks)))
+    return out
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> Attention:

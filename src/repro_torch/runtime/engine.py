@@ -85,6 +85,7 @@ from repro_torch.hw import DriftModel, Fleet
 from repro_torch.hw import drift as drift_lib
 from repro_torch.models import decode as D
 from repro_torch.models.model import Model, resolve_device
+from repro_torch.models.transformer import SERVING_ONLY
 from repro_torch.training.losses import lm_loss
 
 
@@ -315,6 +316,11 @@ class Engine:
                 "Engine(switch=True) does not support MoE models: expert routing couples "
                 "slot rows, so per-slot backend selection is ill-defined"
             )
+        if model.cfg.family in SERVING_ONLY and (self.switch or fleet is not None):
+            raise NotImplementedError(
+                f"{'merged (switch) lanes' if self.switch else 'chip-bound lanes (a fleet)'} "
+                f"on the {model.cfg.family.value} family are not yet ported (ROADMAP A5); "
+                "serve it on static lanes")
         if probe is None and fleet is not None:
             rnd = np.random.default_rng(seed + 101)
             shape = (2, min(32, self.max_seq))
@@ -543,7 +549,9 @@ class Engine:
         # evict: a freed slot decodes as a canonical idle row (zero cache,
         # token 0, position 0), never a finished request's KV: a batch-coupled
         # computation (MoE expert capacity, the per-tensor scales of the SC
-        # and analog emulators) sees the same idle row every time
+        # and analog emulators) sees the same idle row every time.  An SSM
+        # row's state still evolves while the slot sits idle, as in the
+        # reference
         D.slot_reset(self.cfg, lane.cache, slot)
         lane.tokens[slot, 0] = 0
         lane.pos[slot] = 0

@@ -67,6 +67,7 @@ from repro_torch.core.schedule import CalibrationController, PhasePlan
 from repro_torch.data import SyntheticLM
 from repro_torch.hw import Fleet, VariationModel
 from repro_torch.models.model import Model, resolve_device
+from repro_torch.models.transformer import check_trainable
 from repro_torch.training.steps import StepCache, init_train_state
 
 
@@ -114,6 +115,7 @@ class Trainer:
         variation: Optional[VariationModel] = None,
         fleet_seed: Optional[int] = None,
     ):
+        check_trainable(model.cfg, "the Trainer")
         if model.cfg.n_experts:
             raise NotImplementedError(
                 "the Trainer and its checkpoints on a MoE model are not yet ported "

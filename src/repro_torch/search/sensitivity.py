@@ -38,6 +38,7 @@ import torch
 from repro_torch.configs.base import ApproxConfig, Backend, TrainMode
 from repro_torch.core import switch as switch_lib
 from repro_torch.models.model import Model
+from repro_torch.models.transformer import check_trainable
 from repro_torch.search import costmodel
 from repro_torch.training.losses import lm_loss
 from repro_torch.training.steps import CompiledFnCache, _batch, make_eval_step
@@ -187,12 +188,14 @@ def backward_sensitivities(model: Model, params, batch, base: ApproxConfig, *,
                            sites: Optional[Iterable[str]] = None) -> Dict[str, float]:
     """``{site: |first_order|}`` against one probe backend: the blend-grad
     half of :func:`profile_sensitivity` (no hardware evals, no energy),
-    enough to rank sites for the approximate backward's gate.
+    enough to rank sites for the approximate backward's gate (refused for
+    an SSM or HYBRID model, as the search is).
     ``probe_backend`` defaults to the first of ``base``'s approximate
     backends, else ``approx_mult`` (the int8 datapath the gated backward
     emulates).  Under ``dispatch="switch"`` (the default) every site shares
     one blend-grad step of ``fns``, so a second derivation builds
     nothing."""
+    check_searchable(model)
     fns = fns if fns is not None else CompiledFnCache()
     if probe_backend is None:
         ab = base.approx_backends
@@ -248,7 +251,9 @@ def backward_gate(model: Model, params, batch, base: ApproxConfig, *, frac: floa
 def check_searchable(model: Model) -> None:
     """Raise for a MoE model: the search on MoE is not yet held against
     the reference, whose blend and switch never reach the experts (their
-    sub-contexts drop both; ROADMAP A5)."""
+    sub-contexts drop both; ROADMAP A5).  Raise for an SSM or HYBRID
+    model, which the port serves only."""
+    check_trainable(model.cfg, "the search")
     if model.cfg.n_experts:
         raise NotImplementedError(
             f"the search on a MoE model ({model.cfg.name}) is not yet ported (ROADMAP A5)")

@@ -43,6 +43,7 @@ import torch
 from repro_torch.configs.base import ApproxConfig, TrainConfig, TrainMode
 from repro_torch.core import switch as switch_lib
 from repro_torch.models.model import Model, resolve_device
+from repro_torch.models.transformer import check_trainable
 from repro_torch.optim.adamw import adamw_init, adamw_update
 from repro_torch.training.losses import accuracy, lm_loss
 
@@ -53,8 +54,8 @@ def init_train_state(model: Model, seed: int, approx: ApproxConfig,
     """A fresh train state: ``model.init(seed)`` on ``device`` (or the
     given ``params``, which are trained in place from here on), every
     weight made trainable, AdamW's state (``tcfg.optim_compress``), zero
-    calibration stats.  A MoE model takes ``optim_compress="none"`` only
-    (ROADMAP A5)."""
+    calibration stats.  A MoE model takes ``optim_compress="none"`` only;
+    an SSM or HYBRID model is refused (ROADMAP A5)."""
     _check_moe_optim(model, tcfg)
     device = resolve_device(device)
     if params is None:
@@ -95,6 +96,7 @@ def _loss(*args, **kw):
 
 
 def _check_moe_optim(model: Model, tcfg: Optional[TrainConfig]) -> None:
+    check_trainable(model.cfg, "training")
     if model.cfg.n_experts and tcfg is not None and tcfg.optim_compress != "none":
         raise NotImplementedError(
             f"optim_compress={tcfg.optim_compress!r} on a MoE model is not yet ported "
@@ -135,7 +137,8 @@ def make_train_step(model: Model, approx: ApproxConfig, tcfg: TrainConfig,
     ``metrics["aux_loss"]`` the load-balance loss and
     ``metrics["total_loss"]`` their sum, each averaged over microbatches,
     as the reference reports them.  A MoE model trains with
-    ``optim_compress="none"`` only (ROADMAP A5)."""
+    ``optim_compress="none"`` only; an SSM or HYBRID model is refused
+    (ROADMAP A5)."""
     _check_moe_optim(model, tcfg)
     if mode is not None:
         approx = dataclasses.replace(approx, mode=mode)
@@ -186,8 +189,10 @@ def make_calibration_step(model: Model, approx: ApproxConfig, tcfg: TrainConfig)
     """A forward pass with the bit-accurate emulation that refreshes the
     error-injection stats (paper Sec. 3.2's calibration batches):
     ``step(state, batch, rng, chip=None) -> (state with the new calib,
-    metrics)``; with a chip the stats are that device instance's."""
+    metrics)``; with a chip the stats are that device instance's.  An SSM
+    or HYBRID model is refused (ROADMAP A5)."""
     del tcfg
+    check_trainable(model.cfg, "the calibration step")
 
     @torch.no_grad()
     def step(state, batch, rng: Tuple[int, ...], chip=None):
@@ -205,7 +210,9 @@ def make_eval_step(model: Model, approx: ApproxConfig, *, switch_aware: bool = F
     produce): MODEL mode whenever the config has approximate backends, or
     is switch-aware (the canonical config has none of its own).
     ``step(state, batch, rng, chip=None) -> {"loss", "accuracy"}``; with
-    ``switch_aware`` the map comes as ``backend_idx`` after ``chip``."""
+    ``switch_aware`` the map comes as ``backend_idx`` after ``chip``.  An
+    SSM or HYBRID model is refused (ROADMAP A5)."""
+    check_trainable(model.cfg, "the eval step")
     eval_cfg = (dataclasses.replace(approx, mode=TrainMode.MODEL)
                 if approx.approx_backends or switch_aware else approx)
 

@@ -654,8 +654,9 @@ def test_k4_prefill_route_refuses_what_it_does_not_take(cuda):
         sc_matmul_quantized_cuda(x, w.to(torch.bfloat16), 0.25, 32, (ux, uw))
     with pytest.raises(ValueError):  # x is not [M, K]
         sc_matmul_quantized_cuda(x[:, :7].contiguous(), w, 0.25, 32, (ux, uw))
-    with pytest.raises(ValueError):  # a transposed (not contiguous) weight
-        sc_matmul_quantized_cuda(x, torch.ones((6, 8), device=cuda).T, 0.25, 32, (ux, uw))
+    with pytest.raises(ValueError):  # a strided weight, neither [K, N] nor [N, K] row-major
+        sc_matmul_quantized_cuda(x, torch.ones((8, 12), device=cuda)[:, ::2], 0.25, 32,
+                                 (ux, uw))
     with pytest.raises(ValueError):  # draws for other ports
         sc_matmul_quantized_cuda(x, w, 0.25, 32, (ux, uw[:8]))
     with pytest.raises(ValueError):  # a CPU operand
@@ -1573,3 +1574,105 @@ def test_moe_ffn_waits_for_no_host(cuda, groups, monkeypatch):
     assert _sync_waits(lambda: M.moe_ffn(x, params.layers[0].moe, cfg, None)) == 0
     y, aux = M.moe_ffn(x, params.layers[0].moe, cfg, None)
     assert y.shape == x.shape and torch.isfinite(y).all() and torch.isfinite(aux)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [4, 64])
+@pytest.mark.parametrize("kernel", ["approx_mult", "log_mult", "sc"])
+def test_tied_head_nk_entry_bitwise(cuda, kernel, M):
+    """The [N, K] entries of K1, K2 and K4: the weight handed as ``emb.T``
+    (the transpose of a row-major [N, K] embedding, N = 264 = 8 * 33, a
+    multiple of 8 but not 16) is read in place, bitwise the same call on
+    the contiguous copy and the plain version; the launch counts under the
+    entry's own name."""
+    g = torch.Generator(device=cuda).manual_seed(M)
+    bf = torch.bfloat16
+    K, N = 96, 264
+    emb = (torch.randn((N, K), generator=g, device=cuda) * K ** -0.5).to(bf)
+    x = torch.randn((M, K), generator=g, device=cuda).to(bf)
+    w = emb.T
+    build.reset_launches()
+    if kernel == "sc":
+        if M == 4:
+            pytest.skip("SC decode takes row-major planes (K5), not the weight")
+        from repro_torch.kernels import ops
+
+        ux, uw = ops.sc_draws((4, M), 2 * K, 32, cuda)
+        got = sc_matmul_quantized_cuda(x, w, 1.0, 32, SCDraws(ux, uw))
+        contiguous = sc_matmul_quantized_cuda(x, w.contiguous(), 1.0, 32, SCDraws(ux, uw))
+        want = sc_matmul_quantized_ref(x, w, 1.0, 32, (ux, uw))
+        name = "sc_matmul_packed[quantized,nk]"
+    else:
+        drop, bits = (4, 7) if kernel == "approx_mult" else (0, 8)
+        got = int_operand_matmul_fused_cuda(x, w, bits, kernel, {}, bf, drop)
+        contiguous = int_operand_matmul_fused_cuda(x, w.contiguous(), bits, kernel, {}, bf, drop)
+        want = int_operand_matmul_fused_ref(x, w, bits, plain_multiplier(kernel, drop), {}, bf)
+        name = (f"elementwise_matmul_fused[{kernel},nk]" if M <= 4
+                else f"elementwise_matmul[{kernel},quantized,nk]")
+    assert torch.equal(got, contiguous) and torch.equal(got, want)
+    assert build.LAUNCHES[name] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b"])
+@pytest.mark.parametrize("backend", ["approx_mult", "log_mult", "sc", "analog"])
+def test_ssm_serve_step_on_the_card_is_its_cpu_plain_version(cuda, arch, backend):
+    """The SSM and HYBRID smoke configs, a prefill of 2 padded rows and one
+    fused decode step of them on the card and on the CPU from one
+    ``init(0)``: every emulated projection the card ran (mamba's tied head
+    through the [N, K] entries) bitwise its plain version on the CPU from
+    the same operands and key path; every logit and SSM state finite."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ApproxConfig, Backend, TrainMode
+    from repro_torch.core import registry
+    from repro_torch.core.approx_linear import ApproxCtx
+    from repro_torch.models import build_model
+
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg)
+    approx = ApproxConfig(backend=Backend(backend), mode=TrainMode.MODEL)
+    seen, specs = [], {n: registry.get(n) for n in ("approx_mult", "log_mult", "sc", "analog")}
+
+    def record(name, spec):
+        def emulate(x, w, p, rng):
+            y = spec.emulate(x, w, p, rng)
+            seen.append((name, False, x, w, p, rng, None, y))
+            return y
+
+        def fused_emulate(x, w, p, rng, epi):
+            y = spec.fused_emulate(x, w, p, rng, epi)
+            seen.append((name, True, x, w, p, rng, epi, y))
+            return y
+
+        return dataclasses.replace(spec, emulate=emulate, fused_emulate=fused_emulate)
+
+    out, caches = {}, {}
+    for device in ("cpu", cuda):
+        params = model.init(0, device=device)
+        toks = torch.tensor([[3, 9, 27, 81, 5, 7, 0, 0], [4, 8, 15, 16, 23, 42, 11, 2]],
+                            device=device)
+        if device != "cpu":
+            for n, spec in specs.items():
+                registry.register(record(n, spec), override=True)
+        try:
+            _, cache = model.prefill(params, toks, lengths=[6, 8], max_seq=16, approx=approx,
+                                     rng=(2, 0))
+            pos = torch.tensor([6, 8], dtype=torch.int32, device=device)
+            out[str(device)] = model.serve_step(
+                params, cache, toks[:, :1], pos, ctx=ApproxCtx(cfg=approx, fused=True, rng=(2, 1)),
+                flash=True)[0]
+            caches[str(device)] = cache
+        finally:
+            for spec in specs.values():
+                registry.register(spec, override=True)
+    assert torch.isfinite(out[str(cuda)]).all()
+    state = caches[str(cuda)].get("mamba", caches[str(cuda)])["state"]
+    assert state.dtype == torch.float32 and torch.isfinite(state).all()
+    assert seen and any(not f for _, f, *_ in seen) and any(f for _, f, *_ in seen)
+    for name, fused, x, w, p, rng, epi, y in seen:
+        spec = specs[name]
+        xc, wc = x.cpu(), w.cpu()
+        ref_y = spec.fused_emulate(xc, wc, p, rng, epi) if fused else spec.emulate(xc, wc, p, rng)
+        assert torch.equal(y.cpu(), ref_y), (name, fused, tuple(x.shape), tuple(w.shape))
